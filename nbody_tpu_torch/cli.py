@@ -1,0 +1,90 @@
+"""Command-line entry point: `python -m nbody_tpu_torch <in> <out>`.
+
+The reference binary's contract (`./hw5 <in> <out>`, hw5.cu:532-535), plus
+runtime flags for what the reference fixes at compile time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="nbody_tpu_torch",
+        description="N-body scenario solver on PyTorch + CUDA "
+                    "(NTHU IPC HW5 capabilities)")
+    p.add_argument("input", help="testcase .in file")
+    p.add_argument("output", help="3-line .out file to write")
+    p.add_argument("--n-steps", type=int, default=None,
+                   help="override number of steps (default 200000)")
+    p.add_argument("--precision", choices=["f64", "e64", "exact"],
+                   default="f64",
+                   help="f64 (and e64, the same path): native binary64 with "
+                        "the serial force fold, bit-identical to the native "
+                        "core in dsqrt mode; exact: the native serial core "
+                        "on the host")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda runs the hand-written kernels (raises without "
+                        "a card); cpu runs their plain PyTorch versions")
+    p.add_argument("--stats", action="store_true",
+                   help="print a JSON run-stats line to stderr")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    # after parsing, so `--help` stays instant
+    import dataclasses
+
+    import torch
+
+    from .config import SimConfig
+    from .device import resolve_device
+    from .engine import solve_scene
+    from .io import read_input, write_output
+    from .ops.accel_f64 import accel_f64
+    from .utils.profiling import PhaseTimers, pair_interactions
+
+    cfg = SimConfig()
+    if args.n_steps is not None:
+        cfg = dataclasses.replace(cfg, n_steps=args.n_steps)
+    device = None if args.precision == "exact" else resolve_device(args.device)
+
+    timers = PhaseTimers(device)
+    launches0 = accel_f64.launches
+    t0 = time.perf_counter()
+    with timers.phase("read_input"):
+        scene = read_input(args.input)
+    ans = solve_scene(scene, cfg, precision=args.precision,
+                      device=args.device, timers=timers)
+    with timers.phase("write_output"):
+        write_output(args.output, *ans.as_tuple())
+    elapsed = time.perf_counter() - t0
+
+    if args.stats:
+        n_sims = 2 + (scene.device_cnt if ans.hit_time_step != -2 else 0)
+        pairs = pair_interactions(scene.n, cfg.n_steps, n_sims)
+        timers.report(stream=sys.stderr, **{
+            "n": scene.n, "device_cnt": scene.device_cnt,
+            "n_steps": cfg.n_steps, "precision": args.precision,
+            "device": (torch.cuda.get_device_name(device)
+                       if device is not None and device.type == "cuda"
+                       else "cpu"),
+            "wall_s": elapsed,
+            "pair_interactions": pairs,
+            "pairs_per_sec": pairs / elapsed,
+            "accel_f64_launches": accel_f64.launches - launches0,
+            "answers": {"min_dist": ans.min_dist,
+                        "hit_time_step": ans.hit_time_step,
+                        "gravity_device_id": ans.gravity_device_id,
+                        "missile_cost": ans.missile_cost},
+        })
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,108 @@
+"""Scenario orchestration: the reference's `main` (hw5.cu:532-615).
+
+`solve_scene` answers the three problems of a scene: through the fused
+one-pass solver for small scenes with devices, otherwise through Problems
+1+2 and then Problem 3. Selecting the winning device is O(device count)
+host work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from .config import DEFAULT_CONFIG, SimConfig
+from .device import resolve_device
+from .io import Scene
+from .models.direct_sum import run_problem_3, run_problems_12, run_problems_123
+from .physics import missile_cost_for_arrival, oscillation_table
+from .utils.profiling import PhaseTimers
+
+# the JAX package's other precisions, not ported yet (ROADMAP Queue 1 item 6)
+_NOT_PORTED = ("dd", "dd+", "ddp", "tf3", "f32")
+# at most this many bodies, the fused solver walks the horizon once for all
+# problems; above it the phased solvers skip the rows that are decided
+FUSED_MAX_N = 128
+
+
+@dataclasses.dataclass
+class Answers:
+    min_dist: float
+    hit_time_step: int
+    gravity_device_id: int   # original body index of the winning device, or -1
+    missile_cost: float
+
+    def as_tuple(self):
+        return (self.min_dist, self.hit_time_step, self.gravity_device_id,
+                self.missile_cost)
+
+
+def select_winner(scene: Scene, arrivals: np.ndarray, saved: np.ndarray,
+                  cfg: SimConfig):
+    """The cheapest saving device as (original body index, cost), or
+    (-1, 0.0) (hw5.cu:598-601). Cost grows with the arrival step; ties go
+    to the earlier body in file order (hw5.cu:574-585, 512-517)."""
+    best = (-1, 0.0)
+    best_key = None
+    for k in range(scene.device_cnt):
+        if not saved[k]:
+            continue
+        cost = float(missile_cost_for_arrival(cfg, arrivals[k]))
+        key = (cost, int(scene.device_idx[k]))
+        if best_key is None or key < best_key:
+            best_key = key
+            best = (int(scene.device_idx[k]), cost)
+    return best
+
+
+def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
+                precision: str = "f64", device: str = "cuda",
+                timers: PhaseTimers | None = None) -> Answers:
+    """Answer all three problems for a scene.
+
+    precision:
+      'f64' — native IEEE binary64 on `device` with the serial ascending-j
+              force fold (kernel B1 on CUDA), bit-identical to native/core.cc
+              in dsqrt mode. The default.
+      'e64' — the TPU's softfloat emulation of the same semantics; on this
+              port it is the same path as 'f64'.
+      'exact' — the native serial core (libm pow), on the host.
+    device: 'cuda' (raises without a card) or 'cpu' (the plain PyTorch path).
+    """
+    if precision == "exact":
+        from .native import solve_exact
+        return Answers(*solve_exact(scene, cfg,
+                                    dist3_mode=cfg.resolved_dist3("exact")))
+    if precision in _NOT_PORTED:
+        raise NotImplementedError(
+            f"precision {precision!r} is not ported to nbody_tpu_torch yet "
+            "(ROADMAP Queue 1 item 6); use 'f64', 'e64' or 'exact'")
+    if precision not in ("f64", "e64"):
+        raise ValueError(f"unknown precision: {precision}")
+    if cfg.dist3_mode not in (None, "dsqrt"):
+        raise ValueError(
+            f"precision {precision!r} implements only the dsqrt dist3 form "
+            f"(d2 * sqrt(d2)); got dist3_mode={cfg.dist3_mode!r}")
+    dev = resolve_device(device)
+    if timers is None:
+        timers = PhaseTimers(dev)
+
+    with timers.phase("oscillation_table"):
+        fst = oscillation_table(cfg)
+    if scene.device_cnt > 0 and scene.n <= FUSED_MAX_N:
+        with timers.phase("problems_fused"):
+            p123 = run_problems_123(scene, fst, cfg, device=dev)
+        winner = (-1, 0.0)
+        if p123.hit_time_step != -2:
+            winner = select_winner(scene, p123.arrivals, p123.saved, cfg)
+        return Answers(p123.min_dist, p123.hit_time_step, *winner)
+
+    with timers.phase("problem_1_2"):
+        p12 = run_problems_12(scene, fst, cfg, device=dev)
+    winner = (-1, 0.0)
+    if p12.hit_time_step != -2 and scene.device_cnt > 0:
+        with timers.phase("problem_3"):
+            saved = run_problem_3(scene, p12, fst, cfg, device=dev)
+        winner = select_winner(scene, p12.arrivals, saved, cfg)
+    return Answers(p12.min_dist, p12.hit_time_step, *winner)

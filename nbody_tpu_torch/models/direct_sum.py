@@ -1,0 +1,267 @@
+"""Direct-summation scenario solvers: the three problems of the graded solve.
+
+  * `run_problems_12` — Problem 1 (devices off) and Problem 2 (devices on)
+    as a 2-row scenario batch. On the device it tracks the running min
+    planet-asteroid d², the first hit step, each device's missile arrival
+    step and the (q, v) snapshot at that arrival (hw5.cu:322-436).
+  * `run_problem_3` — one row per eligible destroyed device, resumed from
+    its arrival snapshot with that device's mass zeroed (hw5.cu:438-530):
+    all rows as one batch, or one at a time in cost order (n >= 256).
+  * `run_problems_123` — the three problems in one pass for small scenes:
+    each Problem-3 row mirrors the Problem-2 row until its missile arrives.
+
+Semantics are the serial spec's (native/core.cc): strict `<` for min, hit
+and arrival; step 0 checked; no arrival at step 0 (the missile has covered
+no distance). Decisions stay on the device: the host reads the hit step and
+the Problem-3 flags once per `cfg.chunk_steps`, never per step. The loops
+run exactly the steps there are (no masking of steps past the horizon).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..config import SimConfig
+from ..io import Scene
+from ..ops.forces import sq_dist
+from ..ops.integrate import symplectic_euler_step
+
+F64 = torch.float64
+
+
+def _t(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+
+def _host_floats(fst: np.ndarray) -> list:
+    """The oscillation table as Python floats: each step scales the device
+    half-masses by one host scalar (the table is libm's, never the card's)."""
+    return np.asarray(fst, dtype=np.float64).tolist()
+
+
+def _planet_d2(q: torch.Tensor, planet: int,
+               others: torch.Tensor) -> torch.Tensor:
+    """(B, K) squared distances from the planet to bodies `others` in every
+    scenario row of q (B, n, 3)."""
+    return sq_dist(q[:, planet:planet + 1, :], q[:, others, :])
+
+
+def _step0(scene: Scene, cfg: SimConfig, device):
+    """Step-0 min d² and hit (the loops check before any update,
+    hw5.cu:368/387), computed on the host in the serial order."""
+    d = scene.q[scene.planet] - scene.q[scene.asteroid]
+    d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    hit = 0 if d2 < cfg.planet_radius * cfg.planet_radius else -2
+    return (torch.tensor(d2, dtype=F64, device=device),
+            torch.tensor(hit, dtype=torch.int64, device=device))
+
+
+def _masses(rows: np.ndarray, scene: Scene, device):
+    """Per-row base masses and device half-masses: m_eff = m0 + m_half*fst
+    is the spec's mj + 0.5*mj*fst (0.5*m is exact)."""
+    m_half = 0.5 * rows * scene.device_mask()[None, :]
+    return _t(rows, device), _t(m_half, device)
+
+
+@dataclasses.dataclass
+class P12Result:
+    min_dist: float            # Problem 1 answer
+    hit_time_step: int         # Problem 2 answer (-2 if never)
+    arrivals: np.ndarray       # (D,) missile-arrival step per device, -2 if
+    #                            never (or, after the P2 early exit, later
+    #                            than the hit: both mean "cannot save")
+    q_snaps: torch.Tensor      # (D, n, 3) devices-on state at each arrival
+    v_snaps: torch.Tensor      # (D, n, 3)
+
+
+def run_problems_12(scene: Scene, fst: np.ndarray, cfg: SimConfig, *,
+                    device: torch.device) -> P12Result:
+    """Problems 1+2 and the Problem-3 arrival snapshots.
+
+    P2 early exit (hw5.cu:398-402, core.cc:202): once the host sees the
+    hit at a chunk boundary, the devices-on row is dropped and the
+    devices-off row marches alone to the horizon. Arrivals after the hit
+    are ineligible for Problem 3 anyway, so every answer is unchanged."""
+    n, D, planet = scene.n, scene.device_cnt, scene.planet
+    fst = _host_floats(fst)
+    m_off = scene.m * (1.0 - scene.device_mask())
+    m0, m_half = _masses(np.stack([m_off, scene.m]), scene, device)
+    q = _t(np.stack([scene.q, scene.q]), device)
+    v = _t(np.stack([scene.v, scene.v]), device)
+    others = _t(np.asarray([scene.asteroid, *scene.device_idx]), device)
+    r2 = cfg.planet_radius * cfg.planet_radius
+    sdt = cfg.missile_speed * cfg.dt                 # 6e7, exact
+
+    min_d2, hit = _step0(scene, cfg, device)
+    arr = torch.full((D,), -2, dtype=torch.int64, device=device)
+    q_snap = torch.zeros((D, n, 3), dtype=F64, device=device)
+    v_snap = torch.zeros((D, n, 3), dtype=F64, device=device)
+
+    p2_live = True
+    for t0 in range(0, cfg.n_steps, cfg.chunk_steps):
+        if p2_live and int(hit) != -2:           # one host read per chunk
+            p2_live = False
+            q, v, m0, m_half = q[:1], v[:1], m0[:1], m_half[:1]
+            others = others[:1]
+        for s in range(t0 + 1, min(t0 + cfg.chunk_steps, cfg.n_steps) + 1):
+            q, v = symplectic_euler_step(q, v, m0 + m_half * fst[s], G=cfg.G,
+                                         eps=cfg.eps, dt=cfg.dt)
+            d2 = _planet_d2(q, planet, others)   # (rows, 1 + D)
+            min_d2 = torch.minimum(min_d2, d2[0, 0])
+            if not p2_live:
+                continue
+            # arrivals before the hit check, as hw5.cu:396-397 orders them
+            md = sdt * s
+            arrived = (arr == -2) & (d2[1, 1:] < md * md)
+            arr = torch.where(arrived, s, arr)
+            sel = arrived[:, None, None]
+            q_snap = torch.where(sel, q[1], q_snap)
+            v_snap = torch.where(sel, v[1], v_snap)
+            hit = torch.where((hit == -2) & (d2[1, 0] < r2), s, hit)
+    return P12Result(min_dist=math.sqrt(float(min_d2)),
+                     hit_time_step=int(hit), arrivals=arr.cpu().numpy(),
+                     q_snaps=q_snap, v_snaps=v_snap)
+
+
+def run_problem_3(scene: Scene, p12: P12Result, fst: np.ndarray,
+                  cfg: SimConfig, *, device: torch.device,
+                  strategy: str = "auto") -> np.ndarray:
+    """(D,) bool: True where destroying device k saves the planet.
+
+    Only a device whose missile arrives (arrival != -2) no later than the
+    hit step can save it (core.cc:216).
+
+    strategy:
+      'batched'    — every eligible scenario in one batch.
+      'sequential' — one scenario at a time in (arrival, body index) order,
+                     stopping at the first savior: cost grows with the
+                     arrival step, so later ones cannot win (the
+                     reference's PROBLEM3_BREAK pruning, hw5.cu:574-585).
+      'auto'       — sequential for n >= 256, batched below.
+    """
+    D = scene.device_cnt
+    saved = np.zeros((D,), dtype=bool)
+    if D == 0:
+        return saved
+    eligible = (p12.arrivals != -2) & (p12.arrivals <= p12.hit_time_step)
+    if strategy == "auto":
+        strategy = "sequential" if scene.n >= 256 else "batched"
+    if strategy == "batched":
+        idx = np.nonzero(eligible)[0]
+        if idx.size:
+            saved[idx] = _run_p3_scenarios(scene, p12, fst, cfg, idx,
+                                           device=device)
+        return saved
+    if strategy != "sequential":
+        raise ValueError(f"unknown Problem-3 strategy {strategy!r}")
+    order = sorted(np.nonzero(eligible)[0],
+                   key=lambda k: (int(p12.arrivals[k]),
+                                  int(scene.device_idx[k])))
+    for k in order:
+        saved[k] = _run_p3_scenarios(scene, p12, fst, cfg, np.asarray([k]),
+                                     device=device)[0]
+        if saved[k]:
+            break
+    return saved
+
+
+def _run_p3_scenarios(scene: Scene, p12: P12Result, fst: np.ndarray,
+                      cfg: SimConfig, idx: np.ndarray, *,
+                      device: torch.device) -> np.ndarray:
+    """Resumed simulations for the eligible device slots `idx`; returns
+    (len(idx),) bool: never hit from the arrival step to the horizon."""
+    fst = _host_floats(fst)
+    arrivals = p12.arrivals[idx]
+    rows = np.tile(scene.m, (len(idx), 1))
+    rows[np.arange(len(idx)), scene.device_idx[idx]] = 0.0  # destroyed
+    m0, m_half = _masses(rows, scene, device)
+    sel_idx = _t(idx, device)
+    q = p12.q_snaps[sel_idx]
+    v = p12.v_snaps[sel_idx]
+    arr = _t(arrivals, device)
+    r2 = cfg.planet_radius * cfg.planet_radius
+    pa = lambda q: sq_dist(q[:, scene.planet], q[:, scene.asteroid])
+
+    # the resume step is checked on the snapshot before any update
+    # (missile_cost_gpu, hw5.cu:292-298)
+    hit = pa(q) < r2
+    cs = cfg.chunk_steps
+    # skip-ahead: chunks before the earliest arrival leave every row frozen
+    t0 = int(arrivals.min()) // cs * cs
+    while not bool(hit.all()) and t0 < cfg.n_steps:   # read once per chunk
+        for s in range(t0 + 1, min(t0 + cs, cfg.n_steps) + 1):
+            active = arr < s            # destruction acts after the arrival
+            q2, v2 = symplectic_euler_step(q, v, m0 + m_half * fst[s],
+                                           G=cfg.G, eps=cfg.eps, dt=cfg.dt)
+            q = torch.where(active[:, None, None], q2, q)
+            v = torch.where(active[:, None, None], v2, v)
+            hit = hit | (active & (pa(q) < r2))
+        t0 += cs
+    return ~hit.cpu().numpy()
+
+
+@dataclasses.dataclass
+class P123Result:
+    min_dist: float
+    hit_time_step: int
+    arrivals: np.ndarray       # (D,) missile-arrival step per device
+    saved: np.ndarray          # (D,) bool: destroying device k saves it
+
+
+def run_problems_123(scene: Scene, fst: np.ndarray, cfg: SimConfig, *,
+                     device: torch.device) -> P123Result:
+    """Problems 1, 2 and 3 in one pass over rows [P1, P2, P3_0..P3_{D-1}].
+
+    Each P3 row is overwritten with the P2 row's post-step state every
+    step up to and including its missile's arrival (that copy is
+    problem3_preprocess_gpu's snapshot, hw5.cu:265-287) and evolves on its
+    own afterwards with its device's mass zeroed: the same arithmetic as the
+    resumed simulation, so the answers equal the phased solvers' bit for
+    bit while the horizon is walked once."""
+    D, planet = scene.device_cnt, scene.planet
+    fst = _host_floats(fst)
+    m_rows = [scene.m * (1.0 - scene.device_mask()), scene.m]
+    for k in range(D):
+        mk = scene.m.copy()
+        mk[int(scene.device_idx[k])] = 0.0
+        m_rows.append(mk)
+    m0, m_half = _masses(np.stack(m_rows), scene, device)
+    R = 2 + D
+    q = _t(np.stack([scene.q] * R), device)
+    v = _t(np.stack([scene.v] * R), device)
+    others = _t(np.asarray([scene.asteroid, *scene.device_idx]), device)
+    r2 = cfg.planet_radius * cfg.planet_radius
+    sdt = cfg.missile_speed * cfg.dt
+
+    min_d2, hit = _step0(scene, cfg, device)
+    arr = torch.full((D,), -2, dtype=torch.int64, device=device)
+    p3_hit = torch.zeros((D,), dtype=torch.bool, device=device)
+    p1p2_rows = torch.zeros((2,), dtype=torch.bool, device=device)
+    for s in range(1, cfg.n_steps + 1):
+        pending = arr == -2                  # before this step's arrivals
+        q, v = symplectic_euler_step(q, v, m0 + m_half * fst[s], G=cfg.G,
+                                     eps=cfg.eps, dt=cfg.dt)
+        d2 = _planet_d2(q, planet, others)   # (R, 1 + D), before the mirror
+        min_d2 = torch.minimum(min_d2, d2[0, 0])
+        md = sdt * s
+        arr = torch.where(pending & (d2[1, 1:] < md * md), s, arr)
+        # mirror the P2 row into pending and just-arrived P3 rows
+        copy = torch.cat([p1p2_rows, pending])[:, None, None]
+        q = torch.where(copy, q[1:2], q)
+        v = torch.where(copy, v[1:2], v)
+        # a mirrored row's planet-asteroid d² is the P2 row's; P3 rows are
+        # checked from their arrival step on (hw5.cu:292-298)
+        d2_p3 = torch.where(pending, d2[1, 0], d2[2:, 0])
+        p3_hit = p3_hit | ((arr != -2) & (d2_p3 < r2))
+        hit = torch.where((hit == -2) & (d2[1, 0] < r2), s, hit)
+
+    arr_h = arr.cpu().numpy()
+    hit_h = int(hit)
+    eligible = ((arr_h != -2) & (arr_h <= hit_h) if hit_h != -2
+                else np.zeros((D,), dtype=bool))
+    return P123Result(min_dist=math.sqrt(float(min_d2)), hit_time_step=hit_h,
+                      arrivals=arr_h, saved=eligible & ~p3_hit.cpu().numpy())

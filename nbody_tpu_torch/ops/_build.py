@@ -1,0 +1,86 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+nvcc compiles `csrc/*.cu` into one shared library with a plain C interface,
+`_build/libnbody_kernels.so`, loaded with ctypes. The build runs at first
+use and again whenever the sources or flags change (a SHA-256 stamp beside
+the library). Nothing here runs at import: this module is imported on
+machines that have no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libnbody_kernels.so")
+SOURCES = ("accel_f64.cu",)
+# -fmad=false: no a*b+c contraction anywhere on the fp64 path (the kernels
+# also spell every op as a round-to-nearest intrinsic)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                           "(set CUDA_HOME or put nvcc on PATH)")
+    return path
+
+
+def source_digest() -> str:
+    h = hashlib.sha256(repr(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Build the kernel library if it is missing or stale, load it, and
+    declare every entry point's C signature."""
+    digest = source_digest()
+    stamp = LIB_PATH + ".sha256"
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd = os.open(BUILD_DIR, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)   # one build at a time
+        fresh = os.path.exists(LIB_PATH) and os.path.exists(stamp)
+        if fresh:
+            with open(stamp) as f:
+                fresh = f.read().strip() == digest
+        if not fresh:
+            tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   *(os.path.join(CSRC, s) for s in SOURCES)]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed with code {r.returncode}:\n"
+                                   f"{' '.join(cmd)}\n{r.stderr}")
+            os.replace(tmp, LIB_PATH)
+            with open(stamp, "w") as f:
+                f.write(digest)
+    finally:
+        os.close(fd)
+    lib = ctypes.CDLL(LIB_PATH)
+    lib.accel_f64_launch.restype = ctypes.c_int
+    lib.accel_f64_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, gm, a
+        ctypes.c_int, ctypes.c_int, ctypes.c_double,         # B, n, eps2
+        ctypes.c_void_p,                                     # cudaStream_t
+    ]
+    return lib
