@@ -11,12 +11,17 @@ The graded solve runs in IEEE binary64 on the card through kernel B1
 spec's ascending-j fold: bit-identical to the native core
 (native/core.cc, dsqrt mode). On the CPU every kernel has a plain PyTorch
 twin with the same op order, which the tests hold against the JAX package.
-This package imports neither `jax` nor `nbody_tpu`.
+
+`simulate` is the general API ("integrate this system for N steps"): in
+'f32' it runs kernel B2 (csrc/accel_f32.cu), a hand-written CUDA fp32
+all-pairs rsqrt force, and in 'f64'/'e64' kernel B1. This package imports
+neither `jax` nor `nbody_tpu`.
 """
 
 from .config import SimConfig
 from .engine import Answers, solve_scene
 from .io import Scene, format_output, read_input, write_output
+from .simulate import SimState, simulate
 
 __all__ = [
     "SimConfig",
@@ -26,6 +31,8 @@ __all__ = [
     "format_output",
     "Answers",
     "solve_scene",
+    "SimState",
+    "simulate",
 ]
 
 __version__ = "0.1.0"

@@ -1,1 +1,1 @@
-"""Force kernels and integration (fp64 serial-fold path)."""
+"""Force kernels (fp64 serial fold, fp32 rsqrt) and integration."""

@@ -21,9 +21,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libnbody_kernels.so")
-SOURCES = ("accel_f64.cu",)
-# -fmad=false: no a*b+c contraction anywhere on the fp64 path (the kernels
-# also spell every op as a round-to-nearest intrinsic)
+SOURCES = ("accel_f64.cu", "accel_f32.cu")
+# -fmad=false: no a*b+c contraction anywhere on the fp64 path (kernel B1 also
+# spells every op as a round-to-nearest intrinsic). It applies to the whole
+# library, so kernel B2's fp32 multiply-adds are not fused either (the cost
+# is noted in csrc/accel_f32.cu)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -81,6 +83,13 @@ def load() -> ctypes.CDLL:
     lib.accel_f64_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, gm, a
         ctypes.c_int, ctypes.c_int, ctypes.c_double,         # B, n, eps2
+        ctypes.c_void_p,                                     # cudaStream_t
+    ]
+    lib.accel_f32_launch.restype = ctypes.c_int
+    lib.accel_f32_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # qi, qj, gmj
+        ctypes.c_void_p,                                     # a
+        ctypes.c_int, ctypes.c_int, ctypes.c_float,          # ni, nj, eps2
         ctypes.c_void_p,                                     # cudaStream_t
     ]
     return lib

@@ -1,1 +1,1 @@
-"""Profiling helpers."""
+"""Profiling, rescaling, checkpoints and diagnostics."""

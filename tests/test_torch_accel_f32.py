@@ -1,0 +1,215 @@
+"""The port's fp32 force (kernel B2's wrapper and plain version) against the
+JAX package's Pallas fp32 kernel and against host binary64.
+
+`accel_f32_ref` sums each j-tile and adds the tile sums in ascending order,
+as `nbody_tpu.ops.pallas_forces._accel_kernel` does, but reduces inside a
+tile with `torch.sum` where the TPU kernel reduces with `jnp.sum`, so the
+two agree to float32 rounding: the tolerance of
+tests/test_pallas_interpret.py, rtol 2e-5 and atol 1e-6 of the peak. On a
+card, kernel B2 is held against the plain version run in float64 on the
+same inputs: max|a - a_ref| <= 1e-5 * max|a_ref|.
+
+The JAX package is imported inside the tests that use it, so the card's
+tests run where no JAX is installed:
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \
+        tests/test_torch_accel_f32.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nbody_tpu_torch.ops import accel_f32 as mod
+from nbody_tpu_torch.ops.accel_f32 import (accel_f32, accel_f32_ref,
+                                           accel_f32_self)
+
+G, EPS = 6.674e-11, 1e-3
+# kernel B2 against its plain version in float64, relative to the peak
+# |a_ref|: float32 rounding of the two-level sum and rsqrtf's 2 ulp
+CARD_TOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(seed, n):
+    rs = np.random.RandomState(seed)
+    q = rs.randn(n, 3).astype(np.float32)
+    gm = (G * (np.abs(rs.randn(n)) * 1e8)).astype(np.float32)
+    return q, gm
+
+
+def _pallas(qi, qj, gmj, tile_i, tile_j):
+    """The JAX package's B2 (`pallas_accel_cross`) in interpret mode."""
+    import jax.numpy as jnp
+
+    from nbody_tpu.ops.pallas_forces import pallas_accel_cross
+
+    return np.asarray(pallas_accel_cross(
+        jnp.asarray(qi), jnp.asarray(qj), jnp.asarray(gmj), eps=EPS,
+        tile_i=tile_i, tile_j=tile_j, interpret=True))
+
+
+def _host_f64(qi, qj, gmj, eps):
+    qi, qj, gmj = (np.asarray(x, np.float64) for x in (qi, qj, gmj))
+    dq = qj[None, :, :] - qi[:, None, :]
+    d2 = (dq * dq).sum(-1) + np.float32(eps * eps)
+    return ((gmj[None, :] / (d2 * np.sqrt(d2)))[:, :, None] * dq).sum(1)
+
+
+def _close(got, want):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=2e-5,
+                               atol=float(np.abs(want).max()) * 1e-6)
+
+
+@pytest.mark.parametrize("tile_i,tile_j", [(32, 64), (64, 32), (128, 128)])
+def test_plain_matches_pallas_interpret(tile_i, tile_j):
+    q, gm = _inputs(0, 128)
+    got = accel_f32_ref(torch.from_numpy(q), torch.from_numpy(q),
+                        torch.from_numpy(gm), eps=EPS, tile_j=tile_j)
+    _close(got.numpy(), _pallas(q, q, gm, tile_i, tile_j))
+
+
+@pytest.mark.parametrize("ni,nj", [(64, 128), (128, 32)])
+def test_cross_form_matches_pallas_interpret(ni, nj):
+    qi, _ = _inputs(1, ni)
+    qj, gmj = _inputs(2, nj)
+    got = accel_f32(torch.from_numpy(qi), torch.from_numpy(qj),
+                    torch.from_numpy(gmj), eps=EPS)
+    _close(got.numpy(), _pallas(qi, qj, gmj, 32, 32))
+
+
+def test_self_form_is_the_cross_form_of_q_with_itself():
+    q, gm = _inputs(3, 96)
+    qt, gmt = torch.from_numpy(q), torch.from_numpy(gm)
+    assert torch.equal(accel_f32_self(qt, gmt, eps=EPS),
+                       accel_f32(qt, qt, gmt, eps=EPS))
+
+
+def test_zero_mass_bodies_add_nothing():
+    """Whole tiles of zero-mass bodies, coincident at the origin as the JAX
+    package pads, leave every row bit-equal."""
+    q, gm = _inputs(4, 64)
+    q[32:], gm[32:] = 0.0, 0.0
+    full = accel_f32_ref(torch.from_numpy(q), torch.from_numpy(q),
+                         torch.from_numpy(gm), eps=EPS, tile_j=32)
+    half = accel_f32_ref(torch.from_numpy(q[:32]), torch.from_numpy(q[:32]),
+                         torch.from_numpy(gm[:32]), eps=EPS, tile_j=32)
+    assert torch.isfinite(full).all()
+    np.testing.assert_array_equal(full[:32].numpy(), half.numpy())
+
+
+@pytest.mark.parametrize("n,tile_j", [(100, 32), (77, 2048), (1, 16)])
+def test_ragged_n_unpadded(n, tile_j):
+    """Any n, no padding: the last tile is short. Held against host f64 and
+    against the Pallas kernel on the zero-mass-padded scene."""
+    q, gm = _inputs(5, n)
+    got = accel_f32_ref(torch.from_numpy(q), torch.from_numpy(q),
+                        torch.from_numpy(gm), eps=EPS, tile_j=tile_j).numpy()
+    _close(got, _host_f64(q, q, gm, EPS))
+    pad = -n % 32
+    qp = np.concatenate([q, np.zeros((pad, 3), np.float32)])
+    gp = np.concatenate([gm, np.zeros(pad, np.float32)])
+    _close(got, _pallas(qp, qp, gp, 32, 32)[:n])
+
+
+def test_plain_version_in_float64_is_host_f64():
+    q, gm = _inputs(6, 200)
+    got = accel_f32_ref(*(torch.from_numpy(x.astype(np.float64))
+                          for x in (q, q, gm)), eps=EPS, tile_j=64)
+    np.testing.assert_allclose(got.numpy(), _host_f64(q, q, gm, EPS),
+                               rtol=1e-12, atol=0)
+
+
+def test_eps2_is_rounded_to_float32():
+    assert mod.eps2_f32(1e-3) == float(np.float32(1e-6))
+    assert mod.eps2_f32(1e-3) != 1e-3 * 1e-3
+
+
+def test_wrapper_on_cpu_runs_plain_and_counts_no_launch():
+    q, gm = _inputs(7, 50)
+    qt, gmt = torch.from_numpy(q), torch.from_numpy(gm)
+    before = accel_f32.launches
+    got = accel_f32(qt, qt, gmt, eps=EPS)
+    assert accel_f32.launches == before
+    assert torch.equal(got, accel_f32_ref(qt, qt, gmt, eps=EPS))
+
+
+@pytest.mark.parametrize("case", ["float64", "rank", "width", "gm_shape",
+                                  "strided", "empty_i", "empty_j", "meta"])
+def test_wrapper_rejects_bad_inputs(case):
+    qi = torch.zeros((8, 3))
+    qj = torch.zeros((4, 3))
+    gm = torch.zeros(4)
+    err = ValueError
+    if case == "float64":
+        qi, err = qi.double(), TypeError
+    elif case == "rank":
+        qi = qi[None]
+    elif case == "width":
+        qj = torch.zeros((4, 4))
+    elif case == "gm_shape":
+        gm = torch.zeros(5)
+    elif case == "strided":
+        qj = torch.zeros((4, 6))[:, ::2]
+    elif case == "empty_i":
+        qi = qi[:0]
+    elif case == "empty_j":
+        qj, gm = qj[:0], gm[:0]
+    else:
+        qi = torch.zeros((8, 3), device="meta")
+    before = accel_f32.launches
+    with pytest.raises(err):
+        accel_f32(qi, qj, gm, eps=EPS)
+    assert accel_f32.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ni,nj", [(1000, 1000), (4096, 4096), (3000, 5192),
+                                   (1, 129)])
+def test_kernel_matches_plain_on_card(cuda, ni, nj):
+    qi, _ = _inputs(11, ni)
+    qj, gmj = _inputs(12, nj)
+    if ni == nj:
+        qi = qj
+    args = [torch.from_numpy(x).to(cuda) for x in (qi, qj, gmj)]
+    before = accel_f32.launches
+    got = accel_f32(*args, eps=EPS)
+    again = accel_f32(*args, eps=EPS)
+    torch.cuda.synchronize()
+    assert accel_f32.launches == before + 2
+    assert torch.equal(got, again)                 # bitwise repeatable
+    ref = accel_f32_ref(*(x.double() for x in args), eps=EPS)
+    err = float((got.double() - ref).abs().max())
+    assert err <= CARD_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_launcher_error_path_on_card(cuda, monkeypatch):
+    """The C launcher refuses empty shapes with cudaErrorInvalidValue (1),
+    and the wrapper raises on any nonzero return, counting no launch."""
+    from nbody_tpu_torch.ops import _build
+
+    lib = _build.load()
+    z = torch.zeros((4, 3), device=cuda)
+    g = torch.zeros(4, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for ni, nj in ((0, 4), (4, 0), (-1, 4)):
+        assert lib.accel_f32_launch(z.data_ptr(), z.data_ptr(), g.data_ptr(),
+                                    z.data_ptr(), ni, nj, 1e-6, stream) == 1
+
+    class Refusing:
+        @staticmethod
+        def accel_f32_launch(*args):
+            return 1
+
+    monkeypatch.setattr(_build, "load", lambda: Refusing)
+    before = accel_f32.launches
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        accel_f32(z, z, g, eps=EPS)
+    assert accel_f32.launches == before
