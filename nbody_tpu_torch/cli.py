@@ -10,6 +10,8 @@ import argparse
 import sys
 import time
 
+from .config import PRECISIONS
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -20,12 +22,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("output", help="3-line .out file to write")
     p.add_argument("--n-steps", type=int, default=None,
                    help="override number of steps (default 200000)")
-    p.add_argument("--precision", choices=["f64", "e64", "exact"],
-                   default="f64",
-                   help="f64 (and e64, the same path): native binary64 with "
-                        "the serial force fold, bit-identical to the native "
-                        "core in dsqrt mode; exact: the native serial core "
-                        "on the host")
+    p.add_argument("--precision", choices=PRECISIONS, default="f64",
+                   help="f64: native binary64 with the serial force fold, "
+                        "bit-identical to the native core in dsqrt mode; "
+                        "e64, dd, ddp, dd+: the same path (on the TPU they "
+                        "emulate binary64, which the card has); f32: the "
+                        "float32 throughput mode on the rescaled scene, not "
+                        "answer-grade; tf3: not ported yet (raises); exact: "
+                        "the native serial core on the host")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda runs the hand-written kernels (raises without "
                         "a card); cpu runs their plain PyTorch versions")
@@ -46,6 +50,7 @@ def main(argv=None) -> int:
     from .device import resolve_device
     from .engine import solve_scene
     from .io import read_input, write_output
+    from .ops.accel_f32 import accel_f32
     from .ops.accel_f64 import accel_f64
     from .utils.profiling import PhaseTimers, pair_interactions
 
@@ -55,7 +60,7 @@ def main(argv=None) -> int:
     device = None if args.precision == "exact" else resolve_device(args.device)
 
     timers = PhaseTimers(device)
-    launches0 = accel_f64.launches
+    launches0 = accel_f64.launches, accel_f32.launches
     t0 = time.perf_counter()
     with timers.phase("read_input"):
         scene = read_input(args.input)
@@ -77,7 +82,8 @@ def main(argv=None) -> int:
             "wall_s": elapsed,
             "pair_interactions": pairs,
             "pairs_per_sec": pairs / elapsed,
-            "accel_f64_launches": accel_f64.launches - launches0,
+            "accel_f64_launches": accel_f64.launches - launches0[0],
+            "accel_f32_launches": accel_f32.launches - launches0[1],
             "answers": {"min_dist": ans.min_dist,
                         "hit_time_step": ans.hit_time_step,
                         "gravity_device_id": ans.gravity_device_id,

@@ -49,3 +49,6 @@ class SimConfig:
 
 
 DEFAULT_CONFIG = SimConfig()
+
+# the graded solve's precisions (engine.solve_scene says what each means)
+PRECISIONS = ("f64", "e64", "dd", "ddp", "dd+", "f32", "tf3", "exact")

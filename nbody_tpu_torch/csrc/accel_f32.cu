@@ -1,5 +1,6 @@
 // Kernel B2: all-pairs softened gravitational acceleration in float32, the
-// rsqrt form of the throughput path, for rows qi against sources qj.
+// rsqrt form of the throughput path, for rows qi against sources qj, in
+// every row of a scenario batch.
 //
 // Replaces nbody_tpu/ops/pallas_forces.py::_accel_kernel (its wrappers
 // pallas_accel, pallas_accel_cross and pallas_step). Per pair:
@@ -18,9 +19,12 @@
 // as lax.rsqrt is on the TPU. The j == i term is 0 * w and adds nothing;
 // eps2 > 0 keeps its w finite.
 //
-// Layout: qi (ni, 3), qj (nj, 3), gmj (nj,) = fl(G * m_eff) and a (ni, 3),
-// all contiguous float32. A thread owns one row i and keeps its sums in
-// registers; a block owns THREADS rows. For each tile of TJ sources, in
+// Layout: qi (B, ni, 3), qj (B, nj, 3), gmj (B, nj) = fl(G * m_eff) and
+// a (B, ni, 3), all contiguous float32. The batch row b rides blockIdx.y:
+// rows of different b never mix, and each row's fold order does not depend
+// on B, so a batched launch is bitwise equal to B launches of one row. A
+// thread owns one row i and keeps its sums in registers; a block owns
+// THREADS rows of one batch row. For each tile of TJ sources, in
 // ascending order, the block stages (x, y, z, gm) as one float4 per source
 // in shared memory (one source per thread), and every thread folds the tile
 // in ascending j. The last tile is folded only to its end, so any ni and nj
@@ -49,6 +53,11 @@ accel_f32_kernel(const float* __restrict__ qi, const float* __restrict__ qj,
                  int ni, int nj, float eps2) {
     __shared__ float4 s_src[TJ];
 
+    const size_t b = blockIdx.y;
+    qi += b * ni * 3;
+    qj += b * nj * 3;
+    gmj += b * nj;
+    a += b * ni * 3;
     const int t = threadIdx.x;
     const int i = blockIdx.x * THREADS + t;
     float xi = 0.0f, yi = 0.0f, zi = 0.0f;
@@ -99,15 +108,17 @@ accel_f32_kernel(const float* __restrict__ qi, const float* __restrict__ qj,
 
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
 // without launching. ni rides gridDim.x: ceil(ni / THREADS) blocks, at most
-// 2^24 for an int ni, well inside the 2^31 - 1 limit. nj rides the loop
-// inside each block and has no grid limit. Both must be at least 1.
+// 2^24 for an int ni, well inside the 2^31 - 1 limit. B rides gridDim.y,
+// whose limit is 65535. nj rides the loop inside each block and has no grid
+// limit. B, ni and nj must be at least 1.
 extern "C" int accel_f32_launch(const float* qi, const float* qj,
-                                const float* gmj, float* a, int ni, int nj,
-                                float eps2, void* stream) {
-    if (ni <= 0 || nj <= 0)
+                                const float* gmj, float* a, int B, int ni,
+                                int nj, float eps2, void* stream) {
+    if (B <= 0 || B > 65535 || ni <= 0 || nj <= 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    const unsigned blocks = static_cast<unsigned>(ni / THREADS)
-                            + (ni % THREADS != 0 ? 1u : 0u);
+    const dim3 blocks(static_cast<unsigned>(ni / THREADS)
+                      + (ni % THREADS != 0 ? 1u : 0u),
+                      static_cast<unsigned>(B));
     accel_f32_kernel<<<blocks, THREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         qi, qj, gmj, a, ni, nj, eps2);

@@ -11,16 +11,16 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-from .config import DEFAULT_CONFIG, SimConfig
+from .config import DEFAULT_CONFIG, PRECISIONS, SimConfig
 from .device import resolve_device
 from .io import Scene
 from .models.direct_sum import run_problem_3, run_problems_12, run_problems_123
 from .physics import missile_cost_for_arrival, oscillation_table
 from .utils.profiling import PhaseTimers
+from .utils.rescale import IDENTITY, compute_rescale
 
-# the JAX package's other precisions, not ported yet (ROADMAP Queue 1 item 6)
-_NOT_PORTED = ("dd", "dd+", "ddp", "tf3", "f32")
 # at most this many bodies, the fused solver walks the horizon once for all
 # problems; above it the phased solvers skip the rows that are decided
 FUSED_MAX_N = 128
@@ -65,8 +65,19 @@ def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
       'f64' — native IEEE binary64 on `device` with the serial ascending-j
               force fold (kernel B1 on CUDA), bit-identical to native/core.cc
               in dsqrt mode. The default.
-      'e64' — the TPU's softfloat emulation of the same semantics; on this
-              port it is the same path as 'f64'.
+      'e64', 'dd', 'ddp', 'dd+' — the same path as 'f64'. On the TPU, which
+              has no binary64, they are emulations that approach it: 'e64'
+              a bit-exact softfloat, 'dd' XLA's double-double, 'ddp' (alias
+              'dd+') triple-float32 forces on a binary64-rounded state. The
+              card computes in binary64 what all of them approximate.
+      'f32' — the throughput mode: float32 state on the scene rescaled by
+              powers of two (utils/rescale; the graded scenes overflow
+              float32), force kernel B2 over the scenario batch; the min
+              distance is scaled back. Not answer-grade: its trajectories
+              drift from binary64's, so a knife-edge answer may differ.
+      'tf3' — the JAX package's truth-grade triple-float32 trajectories,
+              precision beyond binary64: not ported yet (ROADMAP Queue 1
+              item 6), raises NotImplementedError.
       'exact' — the native serial core (libm pow), on the host.
     device: 'cuda' (raises without a card) or 'cpu' (the plain PyTorch path).
     """
@@ -74,13 +85,20 @@ def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
         from .native import solve_exact
         return Answers(*solve_exact(scene, cfg,
                                     dist3_mode=cfg.resolved_dist3("exact")))
-    if precision in _NOT_PORTED:
+    if precision == "tf3":
         raise NotImplementedError(
-            f"precision {precision!r} is not ported to nbody_tpu_torch yet "
-            "(ROADMAP Queue 1 item 6); use 'f64', 'e64' or 'exact'")
-    if precision not in ("f64", "e64"):
+            "precision 'tf3' (beyond binary64) is not ported to "
+            "nbody_tpu_torch yet (ROADMAP Queue 1 item 6); use 'f64' or "
+            "'exact'")
+    if precision not in PRECISIONS:
         raise ValueError(f"unknown precision: {precision}")
-    if cfg.dist3_mode not in (None, "dsqrt"):
+    rescale, run_scene, run_cfg, dtype = IDENTITY, scene, cfg, torch.float64
+    if precision == "f32":
+        rescale = compute_rescale(scene, eps=cfg.eps, G=cfg.G)
+        run_scene = rescale.apply_scene(scene)
+        run_cfg = rescale.apply_cfg(cfg)
+        dtype = torch.float32
+    elif cfg.dist3_mode not in (None, "dsqrt"):
         raise ValueError(
             f"precision {precision!r} implements only the dsqrt dist3 form "
             f"(d2 * sqrt(d2)); got dist3_mode={cfg.dist3_mode!r}")
@@ -92,17 +110,22 @@ def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
         fst = oscillation_table(cfg)
     if scene.device_cnt > 0 and scene.n <= FUSED_MAX_N:
         with timers.phase("problems_fused"):
-            p123 = run_problems_123(scene, fst, cfg, device=dev)
+            p123 = run_problems_123(run_scene, fst, run_cfg, device=dev,
+                                    dtype=dtype)
         winner = (-1, 0.0)
         if p123.hit_time_step != -2:
             winner = select_winner(scene, p123.arrivals, p123.saved, cfg)
-        return Answers(p123.min_dist, p123.hit_time_step, *winner)
+        return Answers(rescale.unscale_length(p123.min_dist),
+                       p123.hit_time_step, *winner)
 
     with timers.phase("problem_1_2"):
-        p12 = run_problems_12(scene, fst, cfg, device=dev)
+        p12 = run_problems_12(run_scene, fst, run_cfg, device=dev,
+                              dtype=dtype)
     winner = (-1, 0.0)
     if p12.hit_time_step != -2 and scene.device_cnt > 0:
         with timers.phase("problem_3"):
-            saved = run_problem_3(scene, p12, fst, cfg, device=dev)
+            saved = run_problem_3(run_scene, p12, fst, run_cfg, device=dev,
+                                  dtype=dtype)
         winner = select_winner(scene, p12.arrivals, saved, cfg)
-    return Answers(p12.min_dist, p12.hit_time_step, *winner)
+    return Answers(rescale.unscale_length(p12.min_dist), p12.hit_time_step,
+                   *winner)

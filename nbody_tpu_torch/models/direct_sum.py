@@ -15,12 +15,20 @@ and arrival; step 0 checked; no arrival at step 0 (the missile has covered
 no distance). Decisions stay on the device: the host reads the hit step and
 the Problem-3 flags once per `cfg.chunk_steps`, never per step. The loops
 run exactly the steps there are (no masking of steps past the horizon).
+
+`dtype` is the state's: float64 (the graded answer, force kernel B1) or
+float32 (the throughput mode, kernel B2, on a scene and config the caller
+rescaled by powers of two, `utils/rescale`). Masses, the oscillation table
+and every decision quantity (min d², r², the missile radius, the step-0
+checks) are then of that dtype too, with host constants rounded to it
+first, as the JAX package's float32 path computes them
+(nbody_tpu/models/direct_sum.py:483-508). A float32 run checks its state
+for overflow once per chunk and raises FloatingPointError.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -31,16 +39,45 @@ from ..ops.forces import sq_dist
 from ..ops.integrate import symplectic_euler_step
 
 F64 = torch.float64
+_NP = {torch.float64: np.float64, torch.float32: np.float32}
 
 
-def _t(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.ascontiguousarray(a), device=device)
+def _t(a, device, dtype=None) -> torch.Tensor:
+    """A host array on `device`, cast to the state's dtype on the host."""
+    a = np.ascontiguousarray(a if dtype is None else
+                             np.asarray(a, dtype=_NP[dtype]))
+    return torch.as_tensor(a, device=device)
 
 
-def _host_floats(fst: np.ndarray) -> list:
-    """The oscillation table as Python floats: each step scales the device
-    half-masses by one host scalar (the table is libm's, never the card's)."""
-    return np.asarray(fst, dtype=np.float64).tolist()
+def _host_floats(fst: np.ndarray, dtype: torch.dtype) -> list:
+    """The oscillation table as Python floats of the state's dtype: each
+    step scales the device half-masses by one host scalar (the table is
+    libm's, never the card's)."""
+    return np.asarray(fst, dtype=_NP[dtype]).tolist()
+
+
+def _r2(cfg: SimConfig, dtype: torch.dtype) -> float:
+    """The planet radius squared as the state's dtype holds it."""
+    return float(_NP[dtype](cfg.planet_radius * cfg.planet_radius))
+
+
+def _missile_d2(cfg: SimConfig, dtype: torch.dtype) -> list:
+    """md² per step s = 0..n_steps, md = fl(fl(speed*dt) * s) in the
+    state's dtype: the radius of the missile sphere squared (hw5.cu:270)."""
+    t = _NP[dtype]
+    md = t(cfg.missile_speed * cfg.dt) * np.arange(cfg.n_steps + 1, dtype=t)
+    return (md * md).tolist()
+
+
+def _guard_finite(*tensors, context: str) -> None:
+    """Raise if a float32 run overflowed: compute_rescale's growth margin is
+    a heuristic, and past it the state goes inf, then NaN, and every answer
+    is garbage. One host read per chunk."""
+    if not all(bool(torch.isfinite(x).all()) for x in tensors):
+        raise FloatingPointError(
+            f"non-finite simulation state {context}: the rescaled float32 "
+            "run overflowed (orbital growth exceeded the rescale window, "
+            "utils/rescale.py growth_margin); rerun with precision='f64'")
 
 
 def _planet_d2(q: torch.Tensor, planet: int,
@@ -50,21 +87,30 @@ def _planet_d2(q: torch.Tensor, planet: int,
     return sq_dist(q[:, planet:planet + 1, :], q[:, others, :])
 
 
-def _step0(scene: Scene, cfg: SimConfig, device):
+def _step0(scene: Scene, cfg: SimConfig, device, dtype: torch.dtype):
     """Step-0 min d² and hit (the loops check before any update,
-    hw5.cu:368/387), computed on the host in the serial order."""
-    d = scene.q[scene.planet] - scene.q[scene.asteroid]
+    hw5.cu:368/387), computed on the host in the serial order and the
+    state's dtype."""
+    q = np.asarray(scene.q, dtype=_NP[dtype])
+    d = q[scene.planet] - q[scene.asteroid]
     d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-    hit = 0 if d2 < cfg.planet_radius * cfg.planet_radius else -2
-    return (torch.tensor(d2, dtype=F64, device=device),
+    hit = 0 if d2 < _r2(cfg, dtype) else -2
+    return (torch.tensor(d2, dtype=dtype, device=device),
             torch.tensor(hit, dtype=torch.int64, device=device))
 
 
-def _masses(rows: np.ndarray, scene: Scene, device):
-    """Per-row base masses and device half-masses: m_eff = m0 + m_half*fst
-    is the spec's mj + 0.5*mj*fst (0.5*m is exact)."""
-    m_half = 0.5 * rows * scene.device_mask()[None, :]
+def _masses(rows: np.ndarray, scene: Scene, device, dtype: torch.dtype):
+    """Per-row base masses and device half-masses in the state's dtype:
+    m_eff = m0 + m_half*fst is the spec's mj + 0.5*mj*fst (0.5*m and the
+    0/1 mask are exact)."""
+    rows = np.asarray(rows, dtype=_NP[dtype])
+    m_half = 0.5 * rows * scene.device_mask().astype(_NP[dtype])[None, :]
     return _t(rows, device), _t(m_half, device)
+
+
+def _min_dist(min_d2: torch.Tensor) -> float:
+    """sqrt of the min d² in its own dtype, as the JAX package takes it."""
+    return float(np.sqrt(min_d2.cpu().numpy()))
 
 
 @dataclasses.dataclass
@@ -79,7 +125,8 @@ class P12Result:
 
 
 def run_problems_12(scene: Scene, fst: np.ndarray, cfg: SimConfig, *,
-                    device: torch.device) -> P12Result:
+                    device: torch.device, dtype: torch.dtype = F64
+                    ) -> P12Result:
     """Problems 1+2 and the Problem-3 arrival snapshots.
 
     P2 early exit (hw5.cu:398-402, core.cc:202): once the host sees the
@@ -87,19 +134,19 @@ def run_problems_12(scene: Scene, fst: np.ndarray, cfg: SimConfig, *,
     devices-off row marches alone to the horizon. Arrivals after the hit
     are ineligible for Problem 3 anyway, so every answer is unchanged."""
     n, D, planet = scene.n, scene.device_cnt, scene.planet
-    fst = _host_floats(fst)
+    fst = _host_floats(fst, dtype)
     m_off = scene.m * (1.0 - scene.device_mask())
-    m0, m_half = _masses(np.stack([m_off, scene.m]), scene, device)
-    q = _t(np.stack([scene.q, scene.q]), device)
-    v = _t(np.stack([scene.v, scene.v]), device)
+    m0, m_half = _masses(np.stack([m_off, scene.m]), scene, device, dtype)
+    q = _t(np.stack([scene.q, scene.q]), device, dtype)
+    v = _t(np.stack([scene.v, scene.v]), device, dtype)
     others = _t(np.asarray([scene.asteroid, *scene.device_idx]), device)
-    r2 = cfg.planet_radius * cfg.planet_radius
-    sdt = cfg.missile_speed * cfg.dt                 # 6e7, exact
+    r2 = _r2(cfg, dtype)
+    md2 = _missile_d2(cfg, dtype)
 
-    min_d2, hit = _step0(scene, cfg, device)
+    min_d2, hit = _step0(scene, cfg, device, dtype)
     arr = torch.full((D,), -2, dtype=torch.int64, device=device)
-    q_snap = torch.zeros((D, n, 3), dtype=F64, device=device)
-    v_snap = torch.zeros((D, n, 3), dtype=F64, device=device)
+    q_snap = torch.zeros((D, n, 3), dtype=dtype, device=device)
+    v_snap = torch.zeros((D, n, 3), dtype=dtype, device=device)
 
     p2_live = True
     for t0 in range(0, cfg.n_steps, cfg.chunk_steps):
@@ -115,21 +162,23 @@ def run_problems_12(scene: Scene, fst: np.ndarray, cfg: SimConfig, *,
             if not p2_live:
                 continue
             # arrivals before the hit check, as hw5.cu:396-397 orders them
-            md = sdt * s
-            arrived = (arr == -2) & (d2[1, 1:] < md * md)
+            arrived = (arr == -2) & (d2[1, 1:] < md2[s])
             arr = torch.where(arrived, s, arr)
             sel = arrived[:, None, None]
             q_snap = torch.where(sel, q[1], q_snap)
             v_snap = torch.where(sel, v[1], v_snap)
             hit = torch.where((hit == -2) & (d2[1, 0] < r2), s, hit)
-    return P12Result(min_dist=math.sqrt(float(min_d2)),
+        if dtype == torch.float32:
+            _guard_finite(q, min_d2, context=f"in P1/P2 after step {s}")
+    return P12Result(min_dist=_min_dist(min_d2),
                      hit_time_step=int(hit), arrivals=arr.cpu().numpy(),
                      q_snaps=q_snap, v_snaps=v_snap)
 
 
 def run_problem_3(scene: Scene, p12: P12Result, fst: np.ndarray,
                   cfg: SimConfig, *, device: torch.device,
-                  strategy: str = "auto") -> np.ndarray:
+                  strategy: str = "auto", dtype: torch.dtype = F64
+                  ) -> np.ndarray:
     """(D,) bool: True where destroying device k saves the planet.
 
     Only a device whose missile arrives (arrival != -2) no later than the
@@ -154,7 +203,7 @@ def run_problem_3(scene: Scene, p12: P12Result, fst: np.ndarray,
         idx = np.nonzero(eligible)[0]
         if idx.size:
             saved[idx] = _run_p3_scenarios(scene, p12, fst, cfg, idx,
-                                           device=device)
+                                           device=device, dtype=dtype)
         return saved
     if strategy != "sequential":
         raise ValueError(f"unknown Problem-3 strategy {strategy!r}")
@@ -163,7 +212,7 @@ def run_problem_3(scene: Scene, p12: P12Result, fst: np.ndarray,
                                   int(scene.device_idx[k])))
     for k in order:
         saved[k] = _run_p3_scenarios(scene, p12, fst, cfg, np.asarray([k]),
-                                     device=device)[0]
+                                     device=device, dtype=dtype)[0]
         if saved[k]:
             break
     return saved
@@ -171,19 +220,20 @@ def run_problem_3(scene: Scene, p12: P12Result, fst: np.ndarray,
 
 def _run_p3_scenarios(scene: Scene, p12: P12Result, fst: np.ndarray,
                       cfg: SimConfig, idx: np.ndarray, *,
-                      device: torch.device) -> np.ndarray:
+                      device: torch.device, dtype: torch.dtype
+                      ) -> np.ndarray:
     """Resumed simulations for the eligible device slots `idx`; returns
     (len(idx),) bool: never hit from the arrival step to the horizon."""
-    fst = _host_floats(fst)
+    fst = _host_floats(fst, dtype)
     arrivals = p12.arrivals[idx]
     rows = np.tile(scene.m, (len(idx), 1))
     rows[np.arange(len(idx)), scene.device_idx[idx]] = 0.0  # destroyed
-    m0, m_half = _masses(rows, scene, device)
+    m0, m_half = _masses(rows, scene, device, dtype)
     sel_idx = _t(idx, device)
     q = p12.q_snaps[sel_idx]
     v = p12.v_snaps[sel_idx]
     arr = _t(arrivals, device)
-    r2 = cfg.planet_radius * cfg.planet_radius
+    r2 = _r2(cfg, dtype)
     pa = lambda q: sq_dist(q[:, scene.planet], q[:, scene.asteroid])
 
     # the resume step is checked on the snapshot before any update
@@ -201,6 +251,8 @@ def _run_p3_scenarios(scene: Scene, p12: P12Result, fst: np.ndarray,
             v = torch.where(active[:, None, None], v2, v)
             hit = hit | (active & (pa(q) < r2))
         t0 += cs
+        if dtype == torch.float32:
+            _guard_finite(q, context=f"in P3 after step {min(t0, cfg.n_steps)}")
     return ~hit.cpu().numpy()
 
 
@@ -213,7 +265,8 @@ class P123Result:
 
 
 def run_problems_123(scene: Scene, fst: np.ndarray, cfg: SimConfig, *,
-                     device: torch.device) -> P123Result:
+                     device: torch.device, dtype: torch.dtype = F64
+                     ) -> P123Result:
     """Problems 1, 2 and 3 in one pass over rows [P1, P2, P3_0..P3_{D-1}].
 
     Each P3 row is overwritten with the P2 row's post-step state every
@@ -223,21 +276,21 @@ def run_problems_123(scene: Scene, fst: np.ndarray, cfg: SimConfig, *,
     resumed simulation, so the answers equal the phased solvers' bit for
     bit while the horizon is walked once."""
     D, planet = scene.device_cnt, scene.planet
-    fst = _host_floats(fst)
+    fst = _host_floats(fst, dtype)
     m_rows = [scene.m * (1.0 - scene.device_mask()), scene.m]
     for k in range(D):
         mk = scene.m.copy()
         mk[int(scene.device_idx[k])] = 0.0
         m_rows.append(mk)
-    m0, m_half = _masses(np.stack(m_rows), scene, device)
+    m0, m_half = _masses(np.stack(m_rows), scene, device, dtype)
     R = 2 + D
-    q = _t(np.stack([scene.q] * R), device)
-    v = _t(np.stack([scene.v] * R), device)
+    q = _t(np.stack([scene.q] * R), device, dtype)
+    v = _t(np.stack([scene.v] * R), device, dtype)
     others = _t(np.asarray([scene.asteroid, *scene.device_idx]), device)
-    r2 = cfg.planet_radius * cfg.planet_radius
-    sdt = cfg.missile_speed * cfg.dt
+    r2 = _r2(cfg, dtype)
+    md2 = _missile_d2(cfg, dtype)
 
-    min_d2, hit = _step0(scene, cfg, device)
+    min_d2, hit = _step0(scene, cfg, device, dtype)
     arr = torch.full((D,), -2, dtype=torch.int64, device=device)
     p3_hit = torch.zeros((D,), dtype=torch.bool, device=device)
     p1p2_rows = torch.zeros((2,), dtype=torch.bool, device=device)
@@ -247,8 +300,7 @@ def run_problems_123(scene: Scene, fst: np.ndarray, cfg: SimConfig, *,
                                      eps=cfg.eps, dt=cfg.dt)
         d2 = _planet_d2(q, planet, others)   # (R, 1 + D), before the mirror
         min_d2 = torch.minimum(min_d2, d2[0, 0])
-        md = sdt * s
-        arr = torch.where(pending & (d2[1, 1:] < md * md), s, arr)
+        arr = torch.where(pending & (d2[1, 1:] < md2[s]), s, arr)
         # mirror the P2 row into pending and just-arrived P3 rows
         copy = torch.cat([p1p2_rows, pending])[:, None, None]
         q = torch.where(copy, q[1:2], q)
@@ -258,10 +310,14 @@ def run_problems_123(scene: Scene, fst: np.ndarray, cfg: SimConfig, *,
         d2_p3 = torch.where(pending, d2[1, 0], d2[2:, 0])
         p3_hit = p3_hit | ((arr != -2) & (d2_p3 < r2))
         hit = torch.where((hit == -2) & (d2[1, 0] < r2), s, hit)
+        if dtype == torch.float32 and (s % cfg.chunk_steps == 0
+                                       or s == cfg.n_steps):
+            _guard_finite(q, min_d2, context=f"in fused P1/P2/P3 after "
+                                             f"step {s}")
 
     arr_h = arr.cpu().numpy()
     hit_h = int(hit)
     eligible = ((arr_h != -2) & (arr_h <= hit_h) if hit_h != -2
                 else np.zeros((D,), dtype=bool))
-    return P123Result(min_dist=math.sqrt(float(min_d2)), hit_time_step=hit_h,
+    return P123Result(min_dist=_min_dist(min_d2), hit_time_step=hit_h,
                       arrivals=arr_h, saved=eligible & ~p3_hit.cpu().numpy())

@@ -1,10 +1,11 @@
 """Build and load the package's hand-written CUDA kernels.
 
-nvcc compiles `csrc/*.cu` into one shared library with a plain C interface,
-`_build/libnbody_kernels.so`, loaded with ctypes. The build runs at first
-use and again whenever the sources or flags change (a SHA-256 stamp beside
-the library). Nothing here runs at import: this module is imported on
-machines that have no nvcc.
+nvcc compiles each of `csrc/*.cu` to an object, one process per source,
+all started together, and links them into one shared library with a plain
+C interface, `_build/libnbody_kernels.so`, loaded with ctypes. The build
+runs at first use and again whenever the sources or flags change (a SHA-256
+stamp beside the library). Nothing here runs at import: this module is
+imported on machines that have no nvcc.
 """
 
 from __future__ import annotations
@@ -16,18 +17,20 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libnbody_kernels.so")
-SOURCES = ("accel_f64.cu", "accel_f32.cu")
+SOURCES = ("accel_f64.cu", "accel_f32.cu", "accel_mxu.cu")
 # -fmad=false: no a*b+c contraction anywhere on the fp64 path (kernel B1 also
 # spells every op as a round-to-nearest intrinsic). It applies to the whole
-# library, so kernel B2's fp32 multiply-adds are not fused either (the cost
-# is noted in csrc/accel_f32.cu)
+# library, so kernels B2's and B3's fp32 multiply-adds are not fused either
+# (the cost is noted in csrc/accel_f32.cu; for B3 it keeps every product and
+# sum rounded as the plain version rounds them)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -51,6 +54,35 @@ def source_digest() -> str:
     return h.hexdigest()
 
 
+def _nvcc_all(cmds) -> None:
+    """Run every nvcc command at once; raise with the errors of all that
+    failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with code {proc.returncode}:\n"
+                          f"{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _compile_and_link(digest: str, stamp: str) -> None:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, name + ".o") for name in SOURCES]
+        _nvcc_all([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj,
+                   os.path.join(CSRC, name)]
+                  for name, obj in zip(SOURCES, objs))
+        lib = os.path.join(tmp, os.path.basename(LIB_PATH))
+        _nvcc_all([[_nvcc(), "-shared", "-o", lib, *objs]])
+        os.replace(lib, LIB_PATH)
+    with open(stamp, "w") as f:
+        f.write(digest)
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """Build the kernel library if it is missing or stale, load it, and
@@ -66,16 +98,7 @@ def load() -> ctypes.CDLL:
             with open(stamp) as f:
                 fresh = f.read().strip() == digest
         if not fresh:
-            tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *(os.path.join(CSRC, s) for s in SOURCES)]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed with code {r.returncode}:\n"
-                                   f"{' '.join(cmd)}\n{r.stderr}")
-            os.replace(tmp, LIB_PATH)
-            with open(stamp, "w") as f:
-                f.write(digest)
+            _compile_and_link(digest, stamp)
     finally:
         os.close(fd)
     lib = ctypes.CDLL(LIB_PATH)
@@ -88,8 +111,15 @@ def load() -> ctypes.CDLL:
     lib.accel_f32_launch.restype = ctypes.c_int
     lib.accel_f32_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # qi, qj, gmj
-        ctypes.c_void_p,                                     # a
+        ctypes.c_void_p, ctypes.c_int,                       # a, B
         ctypes.c_int, ctypes.c_int, ctypes.c_float,          # ni, nj, eps2
+        ctypes.c_void_p,                                     # cudaStream_t
+    ]
+    lib.accel_mxu_launch.restype = ctypes.c_int
+    lib.accel_mxu_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, gm, a
+        ctypes.c_int, ctypes.c_float,                        # n, eps2
+        ctypes.c_int, ctypes.c_int,                # gram_bf16, accum_bf16
         ctypes.c_void_p,                                     # cudaStream_t
     ]
     return lib

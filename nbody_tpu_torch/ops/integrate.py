@@ -29,9 +29,9 @@ def accel(q: torch.Tensor, m_eff: torch.Tensor, *, G: float,
           eps: float) -> torch.Tensor:
     """Accelerations of q under effective masses m_eff.
 
-    float32: q (n, 3), m_eff (n,); kernel B2 with gm = fl32(m_eff * fl32(G)).
-    float64: q (B, n, 3), m_eff (B, n), or one unbatched scene (n, 3), (n,)
-    as a batch of 1; kernel B1 with gm = fl(m_eff * G)."""
+    q (B, n, 3) and m_eff (B, n), a scenario batch, or one unbatched scene
+    (n, 3), (n,). float32: kernel B2 with gm = fl32(m_eff * fl32(G));
+    float64: kernel B1 with gm = fl(m_eff * G)."""
     if q.dtype == torch.float32:
         return accel_f32_self(q, m_eff * scalar(G, q.dtype), eps=eps)
     if q.dim() == 2:

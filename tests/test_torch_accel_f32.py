@@ -5,9 +5,13 @@ JAX package's Pallas fp32 kernel and against host binary64.
 as `nbody_tpu.ops.pallas_forces._accel_kernel` does, but reduces inside a
 tile with `torch.sum` where the TPU kernel reduces with `jnp.sum`, so the
 two agree to float32 rounding: the tolerance of
-tests/test_pallas_interpret.py, rtol 2e-5 and atol 1e-6 of the peak. On a
-card, kernel B2 is held against the plain version run in float64 on the
-same inputs: max|a - a_ref| <= 1e-5 * max|a_ref|.
+tests/test_pallas_interpret.py, rtol 2e-5 and atol 1e-6 of the peak. The
+same tolerance holds the scenario batch (B, n, 3) against the JAX package's
+XLA fp32 force `pairwise_accel_fast`, which the graded f32 solve runs; each
+batch row must equal the unbatched call bit for bit. On a card, kernel B2 is
+held against the plain version run in float64 on the same inputs:
+max|a - a_ref| <= 1e-5 * max|a_ref|, and a batched launch against one
+launch per row, bit for bit.
 
 The JAX package is imported inside the tests that use it, so the card's
 tests run where no JAX is installed:
@@ -169,6 +173,78 @@ def test_wrapper_rejects_bad_inputs(case):
     assert accel_f32.launches == before
 
 
+@pytest.mark.parametrize("B,n,tile_j", [(2, 100, 32), (5, 20, 2048),
+                                        (3, 300, 128), (1, 77, 32)])
+def test_batch_rows_equal_unbatched_calls_bitwise(B, n, tile_j):
+    rs = np.random.RandomState(20 + B)
+    q = torch.from_numpy(rs.randn(B, n, 3).astype(np.float32))
+    gm = torch.from_numpy((G * np.abs(rs.randn(B, n)) * 1e8)
+                          .astype(np.float32))
+    a = accel_f32_ref(q, q, gm, eps=EPS, tile_j=tile_j)
+    assert a.shape == (B, n, 3)
+    for b in range(B):
+        assert torch.equal(a[b], accel_f32_ref(q[b], q[b], gm[b], eps=EPS,
+                                               tile_j=tile_j))
+    assert torch.equal(accel_f32_self(q, gm, eps=EPS),
+                       accel_f32_ref(q, q, gm, eps=EPS))
+
+
+@pytest.mark.parametrize("B,n", [(2, 16), (5, 64), (3, 128)])
+def test_batch_matches_pairwise_accel_fast(B, n):
+    """The graded f32 solve's force: JAX's XLA `pairwise_accel_fast` over a
+    scenario batch, gm = fl32(G) * m_eff."""
+    import jax.numpy as jnp
+
+    from nbody_tpu.ops.forces import pairwise_accel_fast
+
+    rs = np.random.RandomState(30 + B)
+    q = rs.randn(B, n, 3).astype(np.float32)
+    m = (np.abs(rs.randn(B, n)) * 1e8).astype(np.float32)
+    want = np.asarray(pairwise_accel_fast(jnp.asarray(q), jnp.asarray(m),
+                                          G=G, eps=EPS))
+    got = accel_f32(torch.from_numpy(q), torch.from_numpy(q),
+                    torch.from_numpy(m) * float(np.float32(G)), eps=EPS)
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["batch_rank", "batch_size", "gm_batch",
+                                  "batch_too_large"])
+def test_wrapper_rejects_bad_batches(case):
+    qi, qj, gm = torch.zeros((2, 8, 3)), torch.zeros((2, 4, 3)), \
+        torch.zeros((2, 4))
+    if case == "batch_rank":
+        qj = qj[0]
+    elif case == "batch_size":
+        qj = torch.zeros((3, 4, 3))
+    elif case == "gm_batch":
+        gm = torch.zeros((3, 4))
+    else:
+        qi, qj, gm = (x.expand(65536, *x.shape[1:]) for x in
+                      (qi[:1], qj[:1], gm[:1]))
+    before = accel_f32.launches
+    with pytest.raises(ValueError):
+        accel_f32(qi, qj, gm, eps=EPS)
+    assert accel_f32.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(2, 1024), (5, 20), (3, 129)])
+def test_batched_kernel_equals_per_row_launches_on_card(cuda, B, n):
+    rs = np.random.RandomState(40 + B)
+    q = torch.from_numpy(rs.randn(B, n, 3).astype(np.float32)).to(cuda)
+    gm = torch.from_numpy((G * np.abs(rs.randn(B, n)) * 1e8)
+                          .astype(np.float32)).to(cuda)
+    before = accel_f32.launches
+    got = accel_f32(q, q, gm, eps=EPS)
+    rows = [accel_f32(q[b], q[b], gm[b], eps=EPS) for b in range(B)]
+    torch.cuda.synchronize()
+    assert accel_f32.launches == before + 1 + B
+    assert torch.equal(got, torch.stack(rows))
+    ref = accel_f32_ref(q.double(), q.double(), gm.double(), eps=EPS)
+    err = float((got.double() - ref).abs().max())
+    assert err <= CARD_TOL * float(ref.abs().max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ni,nj", [(1000, 1000), (4096, 4096), (3000, 5192),
                                    (1, 129)])
@@ -191,17 +267,20 @@ def test_kernel_matches_plain_on_card(cuda, ni, nj):
 
 @pytest.mark.cuda
 def test_launcher_error_path_on_card(cuda, monkeypatch):
-    """The C launcher refuses empty shapes with cudaErrorInvalidValue (1),
-    and the wrapper raises on any nonzero return, counting no launch."""
+    """The C launcher refuses empty shapes and a batch beyond the grid's y
+    limit with cudaErrorInvalidValue (1), and the wrapper raises on any
+    nonzero return, counting no launch."""
     from nbody_tpu_torch.ops import _build
 
     lib = _build.load()
     z = torch.zeros((4, 3), device=cuda)
     g = torch.zeros(4, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
-    for ni, nj in ((0, 4), (4, 0), (-1, 4)):
+    for B, ni, nj in ((1, 0, 4), (1, 4, 0), (1, -1, 4), (0, 4, 4),
+                      (65536, 4, 4)):
         assert lib.accel_f32_launch(z.data_ptr(), z.data_ptr(), g.data_ptr(),
-                                    z.data_ptr(), ni, nj, 1e-6, stream) == 1
+                                    z.data_ptr(), B, ni, nj, 1e-6,
+                                    stream) == 1
 
     class Refusing:
         @staticmethod

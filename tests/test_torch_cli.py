@@ -70,12 +70,50 @@ def test_cli_exact_is_the_native_core(tmp_path):
         assert f.read() == _native_text(scene, 60, "pow")
 
 
-@pytest.mark.parametrize("args", [["--precision", "dd"],
+@pytest.mark.parametrize("args", [["--precision", "f16"],
                                   ["--device", "tpu"], []])
 def test_cli_rejects_bad_arguments(tmp_path, args):
     with pytest.raises(SystemExit) as e:
         main(([] if not args else ["a.in", "b.out"]) + args)
     assert e.value.code == 2
+
+
+@pytest.mark.parametrize("precision", ["dd", "ddp", "dd+"])
+def test_cli_f64_aliases_byte_equal_to_native(tmp_path, precision):
+    scene, inp = _scene_file(tmp_path, 79)
+    out = str(tmp_path / "o.out")
+    assert main([inp, out, "--device", "cpu", "--precision", precision,
+                 "--n-steps", str(N_STEPS)]) == 0
+    with open(out) as f:
+        assert f.read() == _native_text(scene, N_STEPS, "dsqrt")
+
+
+def test_cli_f32_writes_the_f32_answers(tmp_path, capsys):
+    from nbody_tpu_torch import SimConfig, solve_scene
+    from nbody_tpu_torch.io import format_output
+
+    scene, inp = _scene_file(tmp_path, 91)
+    out = str(tmp_path / "o.out")
+    assert main([inp, out, "--device", "cpu", "--precision", "f32",
+                 "--n-steps", str(N_STEPS), "--stats"]) == 0
+    want = solve_scene(Scene(n=scene.n, planet=scene.planet,
+                             asteroid=scene.asteroid, q=scene.q, v=scene.v,
+                             m=scene.m, types=scene.types,
+                             device_idx=scene.device_idx),
+                       SimConfig(n_steps=N_STEPS), precision="f32",
+                       device="cpu")
+    with open(out) as f:
+        assert f.read() == format_output(*want.as_tuple())
+    stats = json.loads(capsys.readouterr().err.strip().split("\n")[-1])
+    assert stats["precision"] == "f32"
+    assert stats["accel_f32_launches"] == stats["accel_f64_launches"] == 0
+
+
+def test_cli_tf3_is_not_ported(tmp_path):
+    _, inp = _scene_file(tmp_path, 0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main([inp, str(tmp_path / "o.out"), "--device", "cpu",
+              "--precision", "tf3", "--n-steps", "5"])
 
 
 def test_cli_cuda_without_card_fails(tmp_path):
@@ -84,6 +122,19 @@ def test_cli_cuda_without_card_fails(tmp_path):
     _, inp = _scene_file(tmp_path, 0)
     with pytest.raises(RuntimeError, match="cuda"):
         main([inp, str(tmp_path / "o.out"), "--n-steps", "5"])
+
+
+def test_profile_cli_needs_a_card(tmp_path):
+    """The profiler measures the card or fails; it never profiles a CPU
+    run in its place."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from nbody_tpu_torch.scripts.profile_cli import main as profile_main
+
+    _, inp = _scene_file(tmp_path, 0)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        profile_main(["--", inp, str(tmp_path / "o.out"), "--device", "cpu",
+                      "--n-steps", "5"])
 
 
 def test_port_imports_neither_jax_nor_nbody_tpu(tmp_path):
