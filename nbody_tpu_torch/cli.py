@@ -52,6 +52,7 @@ def main(argv=None) -> int:
     from .io import read_input, write_output
     from .ops.accel_f32 import accel_f32
     from .ops.accel_f64 import accel_f64
+    from .ops.graded_step import graded_step_f32, graded_step_f64
     from .utils.profiling import PhaseTimers, pair_interactions
 
     cfg = SimConfig()
@@ -60,7 +61,8 @@ def main(argv=None) -> int:
     device = None if args.precision == "exact" else resolve_device(args.device)
 
     timers = PhaseTimers(device)
-    launches0 = accel_f64.launches, accel_f32.launches
+    kernels = (accel_f64, accel_f32, graded_step_f64, graded_step_f32)
+    launches0 = [k.launches for k in kernels]
     t0 = time.perf_counter()
     with timers.phase("read_input"):
         scene = read_input(args.input)
@@ -82,8 +84,8 @@ def main(argv=None) -> int:
             "wall_s": elapsed,
             "pair_interactions": pairs,
             "pairs_per_sec": pairs / elapsed,
-            "accel_f64_launches": accel_f64.launches - launches0[0],
-            "accel_f32_launches": accel_f32.launches - launches0[1],
+            **{f"{k.__name__}_launches": k.launches - k0
+               for k, k0 in zip(kernels, launches0)},
             "answers": {"min_dist": ans.min_dist,
                         "hit_time_step": ans.hit_time_step,
                         "gravity_device_id": ans.gravity_device_id,

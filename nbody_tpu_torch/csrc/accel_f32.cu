@@ -37,10 +37,15 @@
 // all of qj is read once per block, from L2 after the first blocks. The
 // library is built with -fmad=false for kernel B1's bit equality, so the
 // five multiply-adds of a pair (two in d2, one in each row sum) stay
-// separate FMUL + FADD instead of FFMA: 18 instructions where 13 would do. Each block is one wave of THREADS rows, so n = 1024 fills only 8
-// SMs; splitting j across blocks, FFMA and a wider unroll are later work.
+// separate FMUL + FADD instead of FFMA: 18 instructions where 13 would do.
+// Each block is one wave of THREADS rows, so n = 1024 fills only 8 SMs; the
+// graded solve runs its own step kernel (graded_step_f32.cu), which splits
+// j across threads with the same sums. FFMA and a wider unroll are later
+// work. The pair term and the tile sum live in forces.cuh.
 
 #include <cuda_runtime.h>
+
+#include "forces.cuh"
 
 namespace {
 
@@ -78,20 +83,8 @@ accel_f32_kernel(const float* __restrict__ qi, const float* __restrict__ qj,
         }
         __syncthreads();
 
-        float px = 0.0f, py = 0.0f, pz = 0.0f;
-#pragma unroll 8
-        for (int jj = 0; jj < cols; ++jj) {
-            const float4 s = s_src[jj];
-            const float dx = s.x - xi;
-            const float dy = s.y - yi;
-            const float dz = s.z - zi;
-            const float d2 = ((dx * dx + dy * dy) + dz * dz) + eps2;
-            const float inv = rsqrtf(d2);
-            const float w = s.w * ((inv * inv) * inv);
-            px += w * dx;
-            py += w * dy;
-            pz += w * dz;
-        }
+        float px, py, pz;
+        nbody::b2_tile_sum(s_src, cols, xi, yi, zi, eps2, px, py, pz);
         ax += px;
         ay += py;
         az += pz;

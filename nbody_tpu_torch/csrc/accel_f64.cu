@@ -35,6 +35,8 @@
 
 #include <cuda_runtime.h>
 
+#include "forces.cuh"
+
 namespace {
 
 constexpr int R = 16;         // rows i per block
@@ -81,18 +83,10 @@ accel_f64_kernel(const double* __restrict__ q, const double* __restrict__ gm,
         for (int p = tid; p < R * TJ; p += THREADS) {
             const int r = p / TJ, jj = p % TJ;
             if (i0 + r >= n || jj >= cols) continue;
-            const double dx = __dsub_rn(s_qj[0][jj], s_qi[0][r]);
-            const double dy = __dsub_rn(s_qj[1][jj], s_qi[1][r]);
-            const double dz = __dsub_rn(s_qj[2][jj], s_qi[2][r]);
-            const double d2 = __dadd_rn(
-                __dadd_rn(__dadd_rn(__dmul_rn(dx, dx), __dmul_rn(dy, dy)),
-                          __dmul_rn(dz, dz)),
-                eps2);
-            const double d3 = __dmul_rn(d2, __dsqrt_rn(d2));
-            const double g = s_gm[jj];
-            s_term[0][r][jj] = __ddiv_rn(__dmul_rn(g, dx), d3);
-            s_term[1][r][jj] = __ddiv_rn(__dmul_rn(g, dy), d3);
-            s_term[2][r][jj] = __ddiv_rn(__dmul_rn(g, dz), d3);
+            nbody::b1_pair_term(s_qj[0][jj], s_qj[1][jj], s_qj[2][jj],
+                                s_gm[jj], s_qi[0][r], s_qi[1][r], s_qi[2][r],
+                                eps2, s_term[0][r][jj], s_term[1][r][jj],
+                                s_term[2][r][jj]);
         }
         __syncthreads();
 

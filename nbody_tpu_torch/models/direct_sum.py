@@ -13,17 +13,20 @@
 Semantics are the serial spec's (native/core.cc): strict `<` for min, hit
 and arrival; step 0 checked; no arrival at step 0 (the missile has covered
 no distance). Decisions stay on the device: the host reads the hit step and
-the Problem-3 flags once per `cfg.chunk_steps`, never per step. The loops
+the Problem-3 flags once per `cfg.chunk_steps`, never per step. Each chunk
+is one call of `ops/graded_step.graded_chunk`: on a card, one C call that
+launches the graded step kernel once per step (force, Euler update and the
+checks); on the CPU, the same steps as a loop of PyTorch ops. The loops
 run exactly the steps there are (no masking of steps past the horizon).
 
-`dtype` is the state's: float64 (the graded answer, force kernel B1) or
-float32 (the throughput mode, kernel B2, on a scene and config the caller
-rescaled by powers of two, `utils/rescale`). Masses, the oscillation table
-and every decision quantity (min d², r², the missile radius, the step-0
-checks) are then of that dtype too, with host constants rounded to it
-first, as the JAX package's float32 path computes them
-(nbody_tpu/models/direct_sum.py:483-508). A float32 run checks its state
-for overflow once per chunk and raises FloatingPointError.
+`dtype` is the state's: float64 (the graded answer, kernel B1's force)
+or float32 (the throughput mode, kernel B2's force, on a scene and config
+the caller rescaled by powers of two, `utils/rescale`). Masses, the
+oscillation table and every decision quantity (min d², r², the missile
+radius, the step-0 checks) are then of that dtype too, with host
+constants rounded to it first, as the JAX package's float32 path computes
+them (nbody_tpu/models/direct_sum.py:483-508). A float32 run checks its
+state for overflow once per chunk and raises FloatingPointError.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import torch
 from ..config import SimConfig
 from ..io import Scene
 from ..ops.forces import sq_dist
-from ..ops.integrate import symplectic_euler_step
+from ..ops.graded_step import P3, P12, P123, Carry, graded_chunk
 
 F64 = torch.float64
 _NP = {torch.float64: np.float64, torch.float32: np.float32}
@@ -49,24 +52,23 @@ def _t(a, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(a, device=device)
 
 
-def _host_floats(fst: np.ndarray, dtype: torch.dtype) -> list:
-    """The oscillation table as Python floats of the state's dtype: each
-    step scales the device half-masses by one host scalar (the table is
-    libm's, never the card's)."""
-    return np.asarray(fst, dtype=_NP[dtype]).tolist()
-
-
 def _r2(cfg: SimConfig, dtype: torch.dtype) -> float:
     """The planet radius squared as the state's dtype holds it."""
     return float(_NP[dtype](cfg.planet_radius * cfg.planet_radius))
 
 
-def _missile_d2(cfg: SimConfig, dtype: torch.dtype) -> list:
+def _fst_table(fst: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
+    """The host's libm oscillation table (physics.oscillation_table) as a
+    device table of the state's dtype, indexed by the step."""
+    return _t(fst, device, dtype)
+
+
+def _md2_table(cfg: SimConfig, device, dtype: torch.dtype) -> torch.Tensor:
     """md² per step s = 0..n_steps, md = fl(fl(speed*dt) * s) in the
     state's dtype: the radius of the missile sphere squared (hw5.cu:270)."""
     t = _NP[dtype]
     md = t(cfg.missile_speed * cfg.dt) * np.arange(cfg.n_steps + 1, dtype=t)
-    return (md * md).tolist()
+    return _t(md * md, device)
 
 
 def _guard_finite(*tensors, context: str) -> None:
@@ -78,13 +80,6 @@ def _guard_finite(*tensors, context: str) -> None:
             f"non-finite simulation state {context}: the rescaled float32 "
             "run overflowed (orbital growth exceeded the rescale window, "
             "utils/rescale.py growth_margin); rerun with precision='f64'")
-
-
-def _planet_d2(q: torch.Tensor, planet: int,
-               others: torch.Tensor) -> torch.Tensor:
-    """(B, K) squared distances from the planet to bodies `others` in every
-    scenario row of q (B, n, 3)."""
-    return sq_dist(q[:, planet:planet + 1, :], q[:, others, :])
 
 
 def _step0(scene: Scene, cfg: SimConfig, device, dtype: torch.dtype):
@@ -106,6 +101,13 @@ def _masses(rows: np.ndarray, scene: Scene, device, dtype: torch.dtype):
     rows = np.asarray(rows, dtype=_NP[dtype])
     m_half = 0.5 * rows * scene.device_mask().astype(_NP[dtype])[None, :]
     return _t(rows, device), _t(m_half, device)
+
+
+def _others(scene: Scene, device) -> torch.Tensor:
+    """The bodies the planet's distance is checked to: the asteroid, then
+    the devices."""
+    return _t(np.asarray([scene.asteroid, *scene.device_idx], np.int64),
+              device)
 
 
 def _min_dist(min_d2: torch.Tensor) -> float:
@@ -133,46 +135,19 @@ def run_problems_12(scene: Scene, fst: np.ndarray, cfg: SimConfig, *,
     hit at a chunk boundary, the devices-on row is dropped and the
     devices-off row marches alone to the horizon. Arrivals after the hit
     are ineligible for Problem 3 anyway, so every answer is unchanged."""
-    n, D, planet = scene.n, scene.device_cnt, scene.planet
-    fst = _host_floats(fst, dtype)
-    m_off = scene.m * (1.0 - scene.device_mask())
-    m0, m_half = _masses(np.stack([m_off, scene.m]), scene, device, dtype)
-    q = _t(np.stack([scene.q, scene.q]), device, dtype)
-    v = _t(np.stack([scene.v, scene.v]), device, dtype)
-    others = _t(np.asarray([scene.asteroid, *scene.device_idx]), device)
-    r2 = _r2(cfg, dtype)
-    md2 = _missile_d2(cfg, dtype)
-
-    min_d2, hit = _step0(scene, cfg, device, dtype)
-    arr = torch.full((D,), -2, dtype=torch.int64, device=device)
-    q_snap = torch.zeros((D, n, 3), dtype=dtype, device=device)
-    v_snap = torch.zeros((D, n, 3), dtype=dtype, device=device)
-
-    p2_live = True
+    c = _p12_carry(scene, fst, cfg, device, dtype)
     for t0 in range(0, cfg.n_steps, cfg.chunk_steps):
-        if p2_live and int(hit) != -2:           # one host read per chunk
-            p2_live = False
-            q, v, m0, m_half = q[:1], v[:1], m0[:1], m_half[:1]
-            others = others[:1]
-        for s in range(t0 + 1, min(t0 + cfg.chunk_steps, cfg.n_steps) + 1):
-            q, v = symplectic_euler_step(q, v, m0 + m_half * fst[s], G=cfg.G,
-                                         eps=cfg.eps, dt=cfg.dt)
-            d2 = _planet_d2(q, planet, others)   # (rows, 1 + D)
-            min_d2 = torch.minimum(min_d2, d2[0, 0])
-            if not p2_live:
-                continue
-            # arrivals before the hit check, as hw5.cu:396-397 orders them
-            arrived = (arr == -2) & (d2[1, 1:] < md2[s])
-            arr = torch.where(arrived, s, arr)
-            sel = arrived[:, None, None]
-            q_snap = torch.where(sel, q[1], q_snap)
-            v_snap = torch.where(sel, v[1], v_snap)
-            hit = torch.where((hit == -2) & (d2[1, 0] < r2), s, hit)
+        # one host read per chunk: the P2 early exit
+        if c.q.shape[0] == 2 and int(c.hit) != -2:
+            c.q, c.v, c.m0, c.m_half = (x[:1] for x in
+                                        (c.q, c.v, c.m0, c.m_half))
+        s1 = min(t0 + cfg.chunk_steps, cfg.n_steps)
+        graded_chunk(P12, c, t0, s1)
         if dtype == torch.float32:
-            _guard_finite(q, min_d2, context=f"in P1/P2 after step {s}")
-    return P12Result(min_dist=_min_dist(min_d2),
-                     hit_time_step=int(hit), arrivals=arr.cpu().numpy(),
-                     q_snaps=q_snap, v_snaps=v_snap)
+            _guard_finite(c.q, c.min_d2, context=f"in P1/P2 after step {s1}")
+    return P12Result(min_dist=_min_dist(c.min_d2),
+                     hit_time_step=int(c.hit), arrivals=c.arr.cpu().numpy(),
+                     q_snaps=c.q_snap, v_snaps=c.v_snap)
 
 
 def run_problem_3(scene: Scene, p12: P12Result, fst: np.ndarray,
@@ -224,36 +199,17 @@ def _run_p3_scenarios(scene: Scene, p12: P12Result, fst: np.ndarray,
                       ) -> np.ndarray:
     """Resumed simulations for the eligible device slots `idx`; returns
     (len(idx),) bool: never hit from the arrival step to the horizon."""
-    fst = _host_floats(fst, dtype)
-    arrivals = p12.arrivals[idx]
-    rows = np.tile(scene.m, (len(idx), 1))
-    rows[np.arange(len(idx)), scene.device_idx[idx]] = 0.0  # destroyed
-    m0, m_half = _masses(rows, scene, device, dtype)
-    sel_idx = _t(idx, device)
-    q = p12.q_snaps[sel_idx]
-    v = p12.v_snaps[sel_idx]
-    arr = _t(arrivals, device)
-    r2 = _r2(cfg, dtype)
-    pa = lambda q: sq_dist(q[:, scene.planet], q[:, scene.asteroid])
-
-    # the resume step is checked on the snapshot before any update
-    # (missile_cost_gpu, hw5.cu:292-298)
-    hit = pa(q) < r2
+    c = _p3_carry(scene, p12, fst, cfg, idx, device, dtype)
     cs = cfg.chunk_steps
     # skip-ahead: chunks before the earliest arrival leave every row frozen
-    t0 = int(arrivals.min()) // cs * cs
-    while not bool(hit.all()) and t0 < cfg.n_steps:   # read once per chunk
-        for s in range(t0 + 1, min(t0 + cs, cfg.n_steps) + 1):
-            active = arr < s            # destruction acts after the arrival
-            q2, v2 = symplectic_euler_step(q, v, m0 + m_half * fst[s],
-                                           G=cfg.G, eps=cfg.eps, dt=cfg.dt)
-            q = torch.where(active[:, None, None], q2, q)
-            v = torch.where(active[:, None, None], v2, v)
-            hit = hit | (active & (pa(q) < r2))
+    t0 = int(p12.arrivals[idx].min()) // cs * cs
+    while not bool(c.hit.all()) and t0 < cfg.n_steps:  # read once per chunk
+        s1 = min(t0 + cs, cfg.n_steps)
+        graded_chunk(P3, c, t0, s1)
         t0 += cs
         if dtype == torch.float32:
-            _guard_finite(q, context=f"in P3 after step {min(t0, cfg.n_steps)}")
-    return ~hit.cpu().numpy()
+            _guard_finite(c.q, context=f"in P3 after step {s1}")
+    return ~c.hit.cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -275,8 +231,66 @@ def run_problems_123(scene: Scene, fst: np.ndarray, cfg: SimConfig, *,
     own afterwards with its device's mass zeroed: the same arithmetic as the
     resumed simulation, so the answers equal the phased solvers' bit for
     bit while the horizon is walked once."""
-    D, planet = scene.device_cnt, scene.planet
-    fst = _host_floats(fst, dtype)
+    c = _p123_carry(scene, fst, cfg, device, dtype)
+    for t0 in range(0, cfg.n_steps, cfg.chunk_steps):
+        s1 = min(t0 + cfg.chunk_steps, cfg.n_steps)
+        graded_chunk(P123, c, t0, s1)
+        if dtype == torch.float32:
+            _guard_finite(c.q, c.min_d2, context=f"in fused P1/P2/P3 after "
+                                                 f"step {s1}")
+
+    arr_h = c.arr.cpu().numpy()
+    hit_h = int(c.hit)
+    eligible = ((arr_h != -2) & (arr_h <= hit_h) if hit_h != -2
+                else np.zeros(arr_h.shape, dtype=bool))
+    return P123Result(min_dist=_min_dist(c.min_d2), hit_time_step=hit_h,
+                      arrivals=arr_h, saved=eligible & ~c.p3_hit.cpu().numpy())
+
+
+def _p12_carry(scene: Scene, fst: np.ndarray, cfg: SimConfig, device,
+               dtype: torch.dtype) -> Carry:
+    """Rows [P1 devices off, P2 devices on] at step 0."""
+    n, D = scene.n, scene.device_cnt
+    m_off = scene.m * (1.0 - scene.device_mask())
+    m0, m_half = _masses(np.stack([m_off, scene.m]), scene, device, dtype)
+    min_d2, hit = _step0(scene, cfg, device, dtype)
+    return Carry(q=_t(np.stack([scene.q, scene.q]), device, dtype),
+                 v=_t(np.stack([scene.v, scene.v]), device, dtype),
+                 m0=m0, m_half=m_half, fst=_fst_table(fst, device, dtype),
+                 others=_others(scene, device),
+                 arr=torch.full((D,), -2, dtype=torch.int64, device=device),
+                 hit=hit, planet=scene.planet, G=cfg.G, eps=cfg.eps,
+                 dt=cfg.dt, r2=_r2(cfg, dtype),
+                 md2=_md2_table(cfg, device, dtype), min_d2=min_d2,
+                 q_snap=torch.zeros((D, n, 3), dtype=dtype, device=device),
+                 v_snap=torch.zeros((D, n, 3), dtype=dtype, device=device))
+
+
+def _p3_carry(scene: Scene, p12: P12Result, fst: np.ndarray, cfg: SimConfig,
+              idx: np.ndarray, device, dtype: torch.dtype) -> Carry:
+    """One row per device slot in `idx`, that device destroyed, at its
+    arrival snapshot."""
+    arrivals = p12.arrivals[idx]
+    rows = np.tile(scene.m, (len(idx), 1))
+    rows[np.arange(len(idx)), scene.device_idx[idx]] = 0.0  # destroyed
+    m0, m_half = _masses(rows, scene, device, dtype)
+    sel_idx = _t(idx, device)
+    q = p12.q_snaps[sel_idx]
+    r2 = _r2(cfg, dtype)
+    # the resume step is checked on the snapshot before any update
+    # (missile_cost_gpu, hw5.cu:292-298)
+    hit = sq_dist(q[:, scene.planet], q[:, scene.asteroid]) < r2
+    return Carry(q=q, v=p12.v_snaps[sel_idx], m0=m0, m_half=m_half,
+                 fst=_fst_table(fst, device, dtype),
+                 others=_t(np.asarray([scene.asteroid]), device),
+                 arr=_t(arrivals, device), hit=hit, planet=scene.planet,
+                 G=cfg.G, eps=cfg.eps, dt=cfg.dt, r2=r2)
+
+
+def _p123_carry(scene: Scene, fst: np.ndarray, cfg: SimConfig, device,
+                dtype: torch.dtype) -> Carry:
+    """Rows [P1, P2, P3_0, ..., P3_{D-1}] at step 0."""
+    D = scene.device_cnt
     m_rows = [scene.m * (1.0 - scene.device_mask()), scene.m]
     for k in range(D):
         mk = scene.m.copy()
@@ -284,40 +298,13 @@ def run_problems_123(scene: Scene, fst: np.ndarray, cfg: SimConfig, *,
         m_rows.append(mk)
     m0, m_half = _masses(np.stack(m_rows), scene, device, dtype)
     R = 2 + D
-    q = _t(np.stack([scene.q] * R), device, dtype)
-    v = _t(np.stack([scene.v] * R), device, dtype)
-    others = _t(np.asarray([scene.asteroid, *scene.device_idx]), device)
-    r2 = _r2(cfg, dtype)
-    md2 = _missile_d2(cfg, dtype)
-
     min_d2, hit = _step0(scene, cfg, device, dtype)
-    arr = torch.full((D,), -2, dtype=torch.int64, device=device)
-    p3_hit = torch.zeros((D,), dtype=torch.bool, device=device)
-    p1p2_rows = torch.zeros((2,), dtype=torch.bool, device=device)
-    for s in range(1, cfg.n_steps + 1):
-        pending = arr == -2                  # before this step's arrivals
-        q, v = symplectic_euler_step(q, v, m0 + m_half * fst[s], G=cfg.G,
-                                     eps=cfg.eps, dt=cfg.dt)
-        d2 = _planet_d2(q, planet, others)   # (R, 1 + D), before the mirror
-        min_d2 = torch.minimum(min_d2, d2[0, 0])
-        arr = torch.where(pending & (d2[1, 1:] < md2[s]), s, arr)
-        # mirror the P2 row into pending and just-arrived P3 rows
-        copy = torch.cat([p1p2_rows, pending])[:, None, None]
-        q = torch.where(copy, q[1:2], q)
-        v = torch.where(copy, v[1:2], v)
-        # a mirrored row's planet-asteroid d² is the P2 row's; P3 rows are
-        # checked from their arrival step on (hw5.cu:292-298)
-        d2_p3 = torch.where(pending, d2[1, 0], d2[2:, 0])
-        p3_hit = p3_hit | ((arr != -2) & (d2_p3 < r2))
-        hit = torch.where((hit == -2) & (d2[1, 0] < r2), s, hit)
-        if dtype == torch.float32 and (s % cfg.chunk_steps == 0
-                                       or s == cfg.n_steps):
-            _guard_finite(q, min_d2, context=f"in fused P1/P2/P3 after "
-                                             f"step {s}")
-
-    arr_h = arr.cpu().numpy()
-    hit_h = int(hit)
-    eligible = ((arr_h != -2) & (arr_h <= hit_h) if hit_h != -2
-                else np.zeros((D,), dtype=bool))
-    return P123Result(min_dist=_min_dist(min_d2), hit_time_step=hit_h,
-                      arrivals=arr_h, saved=eligible & ~p3_hit.cpu().numpy())
+    return Carry(q=_t(np.stack([scene.q] * R), device, dtype),
+                 v=_t(np.stack([scene.v] * R), device, dtype),
+                 m0=m0, m_half=m_half, fst=_fst_table(fst, device, dtype),
+                 others=_others(scene, device),
+                 arr=torch.full((D,), -2, dtype=torch.int64, device=device),
+                 hit=hit, planet=scene.planet, G=cfg.G, eps=cfg.eps,
+                 dt=cfg.dt, r2=_r2(cfg, dtype),
+                 md2=_md2_table(cfg, device, dtype), min_d2=min_d2,
+                 p3_hit=torch.zeros((D,), dtype=torch.bool, device=device))

@@ -3,9 +3,9 @@
 nvcc compiles each of `csrc/*.cu` to an object, one process per source,
 all started together, and links them into one shared library with a plain
 C interface, `_build/libnbody_kernels.so`, loaded with ctypes. The build
-runs at first use and again whenever the sources or flags change (a SHA-256
-stamp beside the library). Nothing here runs at import: this module is
-imported on machines that have no nvcc.
+runs at first use and again whenever a source, a shared header (`*.cuh`)
+or the flags change (a SHA-256 stamp beside the library). Nothing here
+runs at import: this module is imported on machines that have no nvcc.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libnbody_kernels.so")
-SOURCES = ("accel_f64.cu", "accel_f32.cu", "accel_mxu.cu")
+SOURCES = ("accel_f64.cu", "accel_f32.cu", "accel_mxu.cu",
+           "graded_step_f64.cu", "graded_step_f32.cu")
 # -fmad=false: no a*b+c contraction anywhere on the fp64 path (kernel B1 also
 # spells every op as a round-to-nearest intrinsic). It applies to the whole
 # library, so kernels B2's and B3's fp32 multiply-adds are not fused either
@@ -47,10 +48,13 @@ def _nvcc() -> str:
 
 
 def source_digest() -> str:
-    h = hashlib.sha256(repr(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name), "rb") as f:
-            h.update(name.encode() + b"\0" + f.read())
+    """SHA-256 of the flags and of every source and header in `CSRC`, so an
+    edited shared header rebuilds the library too."""
+    h = hashlib.sha256(repr((NVCC_FLAGS, SOURCES)).encode())
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(CSRC, name), "rb") as f:
+                h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()
 
 
@@ -120,6 +124,25 @@ def load() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, gm, a
         ctypes.c_int, ctypes.c_float,                        # n, eps2
         ctypes.c_int, ctypes.c_int,                # gram_bf16, accum_bf16
+        ctypes.c_void_p,                                     # cudaStream_t
+    ]
+    for name, real in (("graded_chunk_f64_launch", ctypes.c_double),
+                       ("graded_chunk_f32_launch", ctypes.c_float)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            *[ctypes.c_void_p] * 16,   # q, v, q2, v2, m0, mh, fst, md2,
+            #                            others, arr, arr2, hit, flag,
+            #                            min_d2, q_snap, v_snap
+            *[ctypes.c_int] * 5,       # mode, B, n, D, planet
+            *[real] * 4,               # G, dt, eps2, r2
+            ctypes.c_int, ctypes.c_int,                      # s0, s1
+            ctypes.c_void_p,                                 # cudaStream_t
+        ]
+    lib.fold_floor_f64_launch.restype = ctypes.c_int
+    lib.fold_floor_f64_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # x, out, ns
+        ctypes.c_int, ctypes.c_int,                          # n, reps
         ctypes.c_void_p,                                     # cudaStream_t
     ]
     return lib

@@ -1,0 +1,272 @@
+"""One chunk of the graded drivers' steps: force, Euler update and checks.
+
+The three drivers of `models/direct_sum.py` advance a scenario batch step
+by step and test every new state: the running min of the devices-off row's
+planet-asteroid d², each missile's arrival and the devices-on snapshot
+there, the first hit, and the Problem-3 rows' hits. `graded_chunk(mode, c,
+s0, s1)` takes a `Carry` of that state from step s0 to s1.
+
+On a CUDA tensor it runs the graded step kernels (csrc/graded_step_f64.cu
+for float64, whose force is kernel B1's; csrc/graded_step_f32.cu for
+float32, whose force is kernel B2's): one C call, one launch per step and
+one closing check launch, no host synchronisation. The wrappers
+`graded_step_f64` and `graded_step_f32` count those launches. Only a
+tensor that lies on the CPU goes to the plain version, the per-step PyTorch
+loop `_p12_chunk_ref`, `_p3_chunk_ref` or `_p123_chunk_ref`, whose force is
+`ops/integrate.accel` (kernels B1 and B2 on a card, their plain versions
+on the CPU). Both compute the same bits: every op of the kernels is the
+plain loop's op in the same order (csrc/graded.cuh).
+
+The JAX package runs the same chunks as compiled scans
+(nbody_tpu/models/direct_sum.py `_p12_chunk`, `_p123_chunk`, `_p3_chunks`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .accel_f32 import eps2_f32
+from .forces import sq_dist
+from .integrate import scalar, symplectic_euler_step
+
+P12, P3, P123 = 0, 1, 2
+_MAX_B = 65535          # the grid's y limit, which the batch rides
+
+
+@dataclasses.dataclass
+class Carry:
+    """A graded driver's state and decision carries on one device; the
+    chunk functions advance it in place. Rows are scenarios: P12 [P1, P2]
+    (P1 alone after the P2 early exit), P3 one row per destroyed device,
+    P123 [P1, P2, P3_0, ...]. Constants are the config's (G, eps, dt) and
+    r2, the planet radius squared in the state's dtype."""
+    q: torch.Tensor             # (B, n, 3) float64 or float32
+    v: torch.Tensor             # (B, n, 3)
+    m0: torch.Tensor            # (B, n) base masses
+    m_half: torch.Tensor        # (B, n) device half-masses
+    fst: torch.Tensor           # (n_steps + 1,) oscillation table
+    others: torch.Tensor        # int64 (1 + D,): asteroid, then devices
+    arr: torch.Tensor           # int64 arrival steps: (D,), P3 (B,)
+    hit: torch.Tensor           # int64 () first hit step; P3 bool (B,)
+    planet: int
+    G: float
+    eps: float
+    dt: float
+    r2: float
+    md2: torch.Tensor | None = None     # (n_steps + 1,) missile radius²
+    min_d2: torch.Tensor | None = None  # () running min of P1's d²
+    p3_hit: torch.Tensor | None = None  # bool (D,), P123
+    q_snap: torch.Tensor | None = None  # (D, n, 3) P2 at each arrival, P12
+    v_snap: torch.Tensor | None = None
+
+
+def _planet_d2(q: torch.Tensor, planet: int,
+               others: torch.Tensor) -> torch.Tensor:
+    """(B, K) squared distances from the planet to bodies `others` in every
+    scenario row of q (B, n, 3)."""
+    return sq_dist(q[:, planet:planet + 1, :], q[:, others, :])
+
+
+def _step(c: Carry, q, v, s: int):
+    return symplectic_euler_step(q, v, c.m0 + c.m_half * c.fst[s], G=c.G,
+                                 eps=c.eps, dt=c.dt)
+
+
+def _p12_chunk_ref(c: Carry, s0: int, s1: int) -> None:
+    """Plain P1+P2 steps s0+1..s1 (the arrivals before the hit check, as
+    hw5.cu:396-397 orders them); P2's checks only while its row runs."""
+    q, v, arr, hit, min_d2 = c.q, c.v, c.arr, c.hit, c.min_d2
+    q_snap, v_snap = c.q_snap, c.v_snap
+    live = q.shape[0] == 2
+    for s in range(s0 + 1, s1 + 1):
+        q, v = _step(c, q, v, s)
+        d2 = _planet_d2(q, c.planet, c.others)   # (rows, 1 + D)
+        min_d2 = torch.minimum(min_d2, d2[0, 0])
+        if not live:
+            continue
+        arrived = (arr == -2) & (d2[1, 1:] < c.md2[s])
+        arr = torch.where(arrived, s, arr)
+        sel = arrived[:, None, None]
+        q_snap = torch.where(sel, q[1], q_snap)
+        v_snap = torch.where(sel, v[1], v_snap)
+        hit = torch.where((hit == -2) & (d2[1, 0] < c.r2), s, hit)
+    c.q, c.v, c.arr, c.hit, c.min_d2 = q, v, arr, hit, min_d2
+    c.q_snap, c.v_snap = q_snap, v_snap
+
+
+def _p3_chunk_ref(c: Carry, s0: int, s1: int) -> None:
+    """Plain Problem-3 steps s0+1..s1: a row moves from the step after its
+    arrival on (destruction acts after the arrival) and flags its hits."""
+    q, v, hit = c.q, c.v, c.hit
+    asteroid = int(c.others[0])
+    for s in range(s0 + 1, s1 + 1):
+        active = c.arr < s
+        q2, v2 = _step(c, q, v, s)
+        q = torch.where(active[:, None, None], q2, q)
+        v = torch.where(active[:, None, None], v2, v)
+        pa = sq_dist(q[:, c.planet], q[:, asteroid])
+        hit = hit | (active & (pa < c.r2))
+    c.q, c.v, c.hit = q, v, hit
+
+
+def _p123_chunk_ref(c: Carry, s0: int, s1: int) -> None:
+    """Plain fused steps s0+1..s1: each P3 row is overwritten with the P2
+    row's post-step state every step up to and including its missile's
+    arrival (problem3_preprocess_gpu's snapshot, hw5.cu:265-287) and evolves
+    on its own afterwards."""
+    q, v, arr, hit, min_d2, p3_hit = (c.q, c.v, c.arr, c.hit, c.min_d2,
+                                      c.p3_hit)
+    p1p2_rows = torch.zeros((2,), dtype=torch.bool, device=q.device)
+    for s in range(s0 + 1, s1 + 1):
+        pending = arr == -2                  # before this step's arrivals
+        q, v = _step(c, q, v, s)
+        d2 = _planet_d2(q, c.planet, c.others)   # before the mirror
+        min_d2 = torch.minimum(min_d2, d2[0, 0])
+        arr = torch.where(pending & (d2[1, 1:] < c.md2[s]), s, arr)
+        # mirror the P2 row into pending and just-arrived P3 rows
+        copy = torch.cat([p1p2_rows, pending])[:, None, None]
+        q = torch.where(copy, q[1:2], q)
+        v = torch.where(copy, v[1:2], v)
+        # a mirrored row's planet-asteroid d² is the P2 row's; P3 rows are
+        # checked from their arrival step on (hw5.cu:292-298)
+        d2_p3 = torch.where(pending, d2[1, 0], d2[2:, 0])
+        p3_hit = p3_hit | ((arr != -2) & (d2_p3 < c.r2))
+        hit = torch.where((hit == -2) & (d2[1, 0] < c.r2), s, hit)
+    c.q, c.v, c.arr, c.hit, c.min_d2, c.p3_hit = (q, v, arr, hit, min_d2,
+                                                  p3_hit)
+
+
+_REF = {P12: _p12_chunk_ref, P3: _p3_chunk_ref, P123: _p123_chunk_ref}
+
+
+def _check(mode: int, c: Carry, s0: int, s1: int) -> None:
+    if mode not in _REF:
+        raise ValueError(f"unknown graded mode {mode!r}")
+    dtype = c.q.dtype
+    if dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"graded_chunk takes a float64 or float32 state, "
+                        f"got {dtype}")
+    if c.q.dim() != 3 or c.q.shape[-1] != 3 or c.q.shape[0] < 1 \
+            or c.q.shape[1] < 1:
+        raise ValueError(f"graded_chunk takes q (B, n, 3), B, n >= 1, got "
+                         f"{tuple(c.q.shape)}")
+    B, n = c.q.shape[:2]
+    D = c.others.shape[0] - 1
+    real = {"v": (c.v, (B, n, 3)), "m0": (c.m0, (B, n)),
+            "m_half": (c.m_half, (B, n)), "fst": (c.fst, None)}
+    ints = {"others": (c.others, (D + 1,))}
+    if mode == P3:
+        ints["arr"] = (c.arr, (B,))
+        flags = {"hit": (c.hit, (B,))}
+    else:
+        real.update(md2=(c.md2, None), min_d2=(c.min_d2, ()))
+        ints.update(arr=(c.arr, (D,)), hit=(c.hit, ()))
+        flags = {}
+        if mode == P12:
+            if B > 2:
+                raise ValueError(f"P12 takes 1 or 2 rows, got {B}")
+            real.update(q_snap=(c.q_snap, (D, n, 3)),
+                        v_snap=(c.v_snap, (D, n, 3)))
+        else:
+            if B != 2 + D:
+                raise ValueError(f"P123 takes 2 + D = {2 + D} rows, got {B}")
+            flags["p3_hit"] = (c.p3_hit, (D,))
+    if not 1 <= B <= _MAX_B:
+        raise ValueError(f"graded_chunk takes 1 <= B <= {_MAX_B}, got {B}")
+    tensors = [("q", c.q, dtype)]
+    for kinds, want in ((real, dtype), (ints, torch.int64),
+                        (flags, torch.bool)):
+        for name, (x, shape) in kinds.items():
+            if x is None:
+                raise ValueError(f"graded mode {mode} needs {name}")
+            if shape is not None and tuple(x.shape) != shape:
+                raise ValueError(f"{name} has shape {tuple(x.shape)}, not "
+                                 f"{shape}")
+            tensors.append((name, x, want))
+    for name, x, want in tensors:
+        if x.dtype != want:
+            raise TypeError(f"{name} is {x.dtype}, not {want}")
+        if x.device != c.q.device:
+            raise ValueError(f"{name} on {x.device} but q on {c.q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"graded_chunk takes contiguous tensors ({name})")
+    for table in ("fst", "md2"):
+        x = getattr(c, table)
+        if x is not None and (x.dim() != 1 or x.shape[0] <= s1):
+            raise ValueError(f"{table} must be 1-D with more than s1 = {s1} "
+                             f"entries, got {tuple(x.shape)}")
+    if not 0 <= s0 < s1:
+        raise ValueError(f"graded_chunk takes 0 <= s0 < s1, got {s0}, {s1}")
+    if not 0 <= c.planet < n:
+        raise ValueError(f"planet {c.planet} outside 0..{n - 1}")
+
+
+def _launch(fn, mode: int, c: Carry, s0: int, s1: int) -> None:
+    """One C call: s1 - s0 step launches and one check launch."""
+    if c.q.device.type != "cuda":
+        raise ValueError(f"{fn.__name__} runs on cuda, not {c.q.device}")
+    from . import _build
+
+    lib = _build.load()
+    q2, v2 = torch.empty_like(c.q), torch.empty_like(c.v)
+    arr2 = c.arr if mode == P3 else c.arr.clone()
+    flag = c.hit if mode == P3 else c.p3_hit
+    f32 = c.q.dtype == torch.float32
+    eps2 = eps2_f32(c.eps) if f32 else c.eps * c.eps
+    ptr = lambda x: None if x is None else x.data_ptr()   # noqa: E731
+    launch = lib.graded_chunk_f32_launch if f32 else \
+        lib.graded_chunk_f64_launch
+    with torch.cuda.device(c.q.device):
+        rc = launch(
+            ptr(c.q), ptr(c.v), ptr(q2), ptr(v2), ptr(c.m0), ptr(c.m_half),
+            ptr(c.fst), ptr(c.md2), ptr(c.others), ptr(c.arr), ptr(arr2),
+            None if mode == P3 else ptr(c.hit), ptr(flag), ptr(c.min_d2),
+            ptr(c.q_snap), ptr(c.v_snap), mode, c.q.shape[0], c.q.shape[1],
+            c.others.shape[0] - 1, c.planet, scalar(c.G, c.q.dtype),
+            scalar(c.dt, c.q.dtype), eps2, c.r2, s0, s1,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
+                           f"{rc}")
+    fn.launches += s1 - s0 + 1
+    if (s1 - s0) % 2:
+        c.q, c.v = q2, v2
+    if mode != P3 and s1 % 2:    # the checks of step p write arr[p & 1]
+        c.arr = arr2
+
+
+def graded_step_f64(mode: int, c: Carry, s0: int, s1: int) -> None:
+    """Steps s0+1..s1 of a float64 carry on its card through the fp64 graded
+    step kernel; adds its launches to `graded_step_f64.launches`."""
+    _check(mode, c, s0, s1)
+    if c.q.dtype != torch.float64:
+        raise TypeError(f"graded_step_f64 takes float64, got {c.q.dtype}")
+    _launch(graded_step_f64, mode, c, s0, s1)
+
+
+def graded_step_f32(mode: int, c: Carry, s0: int, s1: int) -> None:
+    """Steps s0+1..s1 of a float32 carry on its card through the fp32 graded
+    step kernel; adds its launches to `graded_step_f32.launches`."""
+    _check(mode, c, s0, s1)
+    if c.q.dtype != torch.float32:
+        raise TypeError(f"graded_step_f32 takes float32, got {c.q.dtype}")
+    _launch(graded_step_f32, mode, c, s0, s1)
+
+
+graded_step_f64.launches = 0
+graded_step_f32.launches = 0
+
+
+def graded_chunk(mode: int, c: Carry, s0: int, s1: int) -> None:
+    """Advance c from step s0 to s1 (0 <= s0 < s1) in driver `mode` (P12,
+    P3 or P123). CUDA tensors run the graded step kernel of their dtype;
+    CPU tensors run the plain chunk."""
+    _check(mode, c, s0, s1)
+    if c.q.device.type == "cpu":
+        _REF[mode](c, s0, s1)
+    elif c.q.dtype == torch.float64:
+        graded_step_f64(mode, c, s0, s1)
+    else:
+        graded_step_f32(mode, c, s0, s1)
