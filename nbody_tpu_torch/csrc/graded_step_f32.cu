@@ -8,7 +8,7 @@
 // Per step t and scenario row b:
 //
 //   gm_j = fl32(fl32(m0_j + fl32(mh_j * fst[t])) * fl32(G))
-//   a_i  = B2's sum: 128-wide tile sums (forces.cuh), added to the row in
+//   a_i  = B2's sum: 128-wide tile sums (accel_f32.cu), added to the row in
 //          ascending tile order from 0
 //   v_i' = v_i + a_i*dt;  q_i' = q_i + v_i'*dt
 //
@@ -17,9 +17,7 @@
 // to kernel B2 (accel_f32.cu) at any n, and the step to B2 plus the PyTorch
 // ops of the drivers' plain chunk.
 //
-// Layout: B2 puts one row on a thread and folds all n sources there, so at
-// n = 1024 a scenario row is 8 blocks on 132 SMs, each thread a chain of
-// 1024 pair terms. Here a block owns RB rows and walks the sources in
+// Layout: a block owns RB rows and walks the sources in
 // rounds of TW tiles. In a round, all THREADS threads compute the pair
 // terms of the block's rows into shared memory, a source per thread at a
 // time; then one thread per (row, component, tile) folds that tile's 128

@@ -119,6 +119,11 @@ def load() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_float,          # ni, nj, eps2
         ctypes.c_void_p,                                     # cudaStream_t
     ]
+    lib.rsqrt_probe_launch.restype = ctypes.c_int
+    lib.rsqrt_probe_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # x, want, got
+        ctypes.c_int, ctypes.c_void_p,                       # n, cudaStream_t
+    ]
     lib.accel_mxu_launch.restype = ctypes.c_int
     lib.accel_mxu_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, gm, a

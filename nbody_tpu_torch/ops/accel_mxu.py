@@ -20,9 +20,15 @@ float32 products, 'default' one bf16 pass, whose product inputs are rounded
 to bfloat16 (to nearest, ties to even) and summed in float32. For the Gram
 that rounds qi and qj, for the accumulation w and qj.
 
-The kernel folds each 128-source tile serially and adds the tile sums in
-ascending order; the plain version sums the same tiles with `torch.sum`, so
-the two agree to float32 rounding, not bit for bit.
+The kernel computes g, d2 and w op for op as the plain version does, and
+its accumulation on the tensor cores: one bf16 mma for accum='default',
+two tf32 mma on split operands (w and qj each a tf32 value and a
+remainder) for highest:highest; default:highest accumulates with float32 FMAs, because
+the tensor cores' truncated sums miss the tolerance there (csrc/
+accel_mxu.cu). It adds each mma's sum to its 128-source tile's sum and the
+tile sums in ascending order; the plain version sums the same tiles with
+`torch.sum`, so the two agree to float32 rounding, not bit for bit
+(tests/test_torch_accel_mxu.py emulates the kernel's accumulation).
 """
 
 from __future__ import annotations

@@ -227,8 +227,119 @@ def test_wrapper_rejects_bad_batches(case):
     assert accel_f32.launches == before
 
 
+# kernel B2's two shapes (csrc/accel_f32.cu): rows a thread R, lanes of a
+# warp on one tile LR, warps a block W; and its tile width
+B2_SHAPES = {"large": (4, 32, 4), "small": (2, 8, 2)}
+B2_TJ = 128
+
+
+def _pair_terms(qi, qj, gmj):
+    """Every term w*dx of kernel B2, (ni, nj, 3) float32, op for op."""
+    f = np.float32
+    d = qj[None, :, :] - qi[:, None, :]
+    d2 = ((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+          + d[..., 2] * d[..., 2]) + f(EPS * EPS)
+    inv = f(1) / np.sqrt(d2)
+    return (gmj[None, :] * ((inv * inv) * inv))[..., None] * d
+
+
+def _serial_tile_fold(t):
+    """B2's sum with one row a thread, as the fp32 graded step's plain
+    chunk specifies it: each 128-wide tile folded from 0 in ascending j,
+    the tile sums added from 0 in ascending order."""
+    acc = np.zeros((t.shape[0], 3), np.float32)
+    for j0 in range(0, t.shape[1], B2_TJ):
+        p = np.zeros_like(acc)
+        for j in range(j0, min(j0 + B2_TJ, t.shape[1])):
+            p += t[:, j]
+        acc += p
+    return acc
+
+
+def _kernel_order(t, R, LR, W):
+    """The sum in the order kernel B2's threads take it: blocks of R*LR
+    rows; rounds of W*32/LR tiles; in a round, the thread of lane l in warp
+    w folds tile w*LT + l//LR for its rows i0 + r*LR + l%LR into shared
+    memory; the owners of (row, component) then add the round's tile sums
+    in ascending order."""
+    ni, nj = t.shape[:2]
+    LT = 32 // LR
+    RB, TPR = R * LR, W * LT
+    span = TPR * B2_TJ
+    lane = np.arange(32 * W) % 32
+    lr, tt = lane % LR, (np.arange(32 * W) // 32) * LT + lane // LR
+    a = np.zeros((ni, 3), np.float32)
+    for i0 in range(0, ni, RB):
+        acc = np.zeros((3, RB), np.float32)
+        for rd in range((nj - 1) // span + 1):
+            part = np.zeros((TPR, 3, RB), np.float32)
+            j0 = (rd * TPR + tt) * B2_TJ           # each thread's tile
+            live = j0 < nj
+            cols = np.where(live, np.minimum(B2_TJ, nj - j0), 0)
+            for r in range(R):
+                rows = i0 + r * LR + lr
+                ok = live & (rows < ni)
+                p = np.zeros((32 * W, 3), np.float32)
+                for jj in range(B2_TJ):
+                    on = ok & (jj < cols)
+                    p[on] += t[rows[on], j0[on] + jj]
+                part[tt[live], :, (r * LR + lr)[live]] = p[live]
+            for k in range(TPR):
+                if (rd * TPR + k) * B2_TJ < nj:
+                    acc += part[k]
+        rows = np.arange(i0, min(i0 + RB, ni))
+        a[rows] = acc[:, :len(rows)].T
+    return a
+
+
+@pytest.mark.parametrize("shape", ["large", "small"])
+@pytest.mark.parametrize("B,n", [(1, 1000), (1, 1025), (1, 20), (2, 300)])
+def test_kernel_order_equals_serial_tile_fold_bitwise(shape, B, n):
+    """The new kernel's order (R rows a thread, tiles split across warps,
+    tile sums through shared memory added in ascending order) gives the
+    serial per-tile fold's bits, in each batch row, at ragged n: what lets
+    kernel B2 and the fp32 graded step kernel agree bit for bit."""
+    rs = np.random.RandomState(50 + n)
+    q = rs.randn(B, n, 3).astype(np.float32)
+    gm = (G * np.abs(rs.randn(B, n)) * 1e8).astype(np.float32)
+    for b in range(B):
+        t = _pair_terms(q[b], q[b], gm[b])
+        np.testing.assert_array_equal(
+            _kernel_order(t, *B2_SHAPES[shape]), _serial_tile_fold(t))
+
+
+def test_kernel_order_cross_form_bitwise():
+    """Rows and sources apart (ni != nj, several rounds of the small
+    shape)."""
+    rs = np.random.RandomState(60)
+    qi, qj = (rs.randn(k, 3).astype(np.float32) for k in (40, 2100))
+    gm = (G * np.abs(rs.randn(2100)) * 1e8).astype(np.float32)
+    t = _pair_terms(qi, qj, gm)
+    for shape in B2_SHAPES.values():
+        np.testing.assert_array_equal(_kernel_order(t, *shape),
+                                      _serial_tile_fold(t))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n", [(2, 1024), (5, 20), (3, 129)])
+def test_rsqrt_approx_equals_rsqrtf_on_card(cuda):
+    """rsqrt.approx.ftz, which kernels B2 and B3 issue, gives rsqrtf's
+    bits on normal floats from eps^2 / 2 up."""
+    from nbody_tpu_torch.ops import _build
+
+    lib = _build.load()
+    rs = np.random.RandomState(8)
+    x = (2.0 ** rs.uniform(np.log2(5e-7), 127, 1 << 20)).astype(np.float32)
+    xc = torch.from_numpy(x).to(cuda)
+    want, got = torch.empty_like(xc), torch.empty_like(xc)
+    assert lib.rsqrt_probe_launch(xc.data_ptr(), want.data_ptr(),
+                                  got.data_ptr(), xc.numel(),
+                                  torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(want.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(2, 1024), (5, 20), (3, 129), (3, 11264)])
 def test_batched_kernel_equals_per_row_launches_on_card(cuda, B, n):
     rs = np.random.RandomState(40 + B)
     q = torch.from_numpy(rs.randn(B, n, 3).astype(np.float32)).to(cuda)

@@ -105,6 +105,143 @@ def _numpy_gram(q, gm, gram, accum, tile=128):
     return acc[:, :3] - acc[:, 3:] * q
 
 
+def _tf32_np(x):
+    """tf32 rounding as cvt.rn.tf32.f32 does it, on the float32 bits: to
+    nearest with ties to even, 10 fraction bits kept."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _to_f32(x, rounding):
+    """float64 sums rounded to float32 to nearest ('rn') or toward zero
+    ('rz'): the two ends of what an mma may do with its sum."""
+    r = x.astype(np.float32)
+    if rounding == "rz":
+        over = np.abs(r.astype(np.float64)) > np.abs(x)
+        r = np.where(over, np.nextafter(r, np.float32(0)), r)
+    return r
+
+
+def _numpy_mma(q, gm, gram, accum, rounding, tile=128):
+    """Kernel B3's arithmetic as csrc/accel_mxu.cu arranges it, in numpy:
+    the Gram, d2 and w op for op in float32 (rsqrt as the plain version
+    takes it); the self pair masked on the diagonal tiles only; the
+    accumulation W x [qj | 1] as the kernel takes it for the variant: on
+    the tensor cores, one mma per chunk of sources from 0 (16 for a bf16
+    pass of rounded w and qj; 8 for split tf32: w_lo, then w_hi, against
+    [qj_hi, 1 | qj_lo, 0], two mma each rounding its exact sum, w_lo cut to
+    tf32 by truncation, the rest by cvt.rn, column c + 4 added to column c
+    at the tile's end), each chunk's
+    sum added in float32 to its tile's sum; for default:highest on the CUDA
+    cores, each lane t of a quad folding the tile's sources s = t mod 4 in
+    ascending order with FMAs, then (L0 + L1) + (L2 + L3); the tile sums
+    added in ascending order; then the epilogue."""
+    f = np.float32
+    n = q.shape[0]
+    eps2 = f(EPS * EPS)
+    nrm2 = (q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1]) + q[:, 2] * q[:, 2]
+    gq = _bf16_np(q) if gram == "default" else q
+    g = ((gq[:, None, 0] * gq[None, :, 0] + gq[:, None, 1] * gq[None, :, 1])
+         + gq[:, None, 2] * gq[None, :, 2])
+    d2 = np.maximum((nrm2[:, None] + (nrm2[None, :] + eps2)) - f(2) * g,
+                    f(0.5) * eps2)
+    inv = torch.rsqrt(torch.from_numpy(d2)).numpy()
+    w = gm[None, :] * ((inv * inv) * inv)
+    for b in range(0, n, tile):
+        np.fill_diagonal(w[b:b + tile, b:b + tile], f(0))
+    pad = -n % tile   # sources of gm = 0 at the origin: w = 0
+    w = np.pad(w, ((0, 0), (0, pad)))
+    s = np.pad(np.concatenate([q, np.ones((n, 1), np.float32)], 1),
+               ((0, pad), (0, 0)))
+
+    def mma(a, b, c=0.0):   # a (n, chunks, k), b (chunks, k, columns)
+        return _to_f32(np.einsum("ick,ckd->icd", a.astype(np.float64),
+                                 b.astype(np.float64)) + c, rounding)
+
+    if gram == "default" and accum == "highest":
+        f64 = np.float64
+        wl = w.reshape(n, -1, tile // 4, 4).astype(f64)       # [.., c, t]
+        sl = s.reshape(-1, tile // 4, 4, 4).astype(f64)        # [k, c, t, col]
+        lanes = np.zeros((n, wl.shape[1], 4, 4), np.float32)  # [.., t, col]
+        for c in range(tile // 4):
+            prod = wl[:, :, c, :, None] * sl[None, :, c]
+            prod[..., 3] = wl[:, :, c, :]
+            lanes = (prod + lanes).astype(np.float32)   # fma: one rounding
+        tile_sums = ((lanes[:, :, 0] + lanes[:, :, 1])
+                     + (lanes[:, :, 2] + lanes[:, :, 3]))
+        acc = np.zeros((n, 4), np.float32)
+        for t in range(tile_sums.shape[1]):
+            acc += tile_sums[:, t]
+        return acc[:, :3] - acc[:, 3:] * q
+    if accum == "default":
+        k = 16
+        chunks = mma(_bf16_np(w).reshape(n, -1, k),
+                     _bf16_np(s).reshape(-1, k, 4))
+    else:
+        k = 8
+        wh, sh = _tf32_np(w), _tf32_np(s)
+        # the mma reads the top 11 bits of the unrounded w_lo
+        wl = ((w - wh).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+        s8 = np.concatenate([sh, _tf32_np(s - sh)], 1)   # [qj_hi, 1 | qj_lo, 0]
+        wh, wl = (x.reshape(n, -1, k) for x in (wh, wl))
+        s8 = s8.reshape(-1, k, 8)
+        chunks = mma(wh, s8, mma(wl, s8))
+    chunks = chunks.reshape(n, -1, tile // k, chunks.shape[-1])
+    tile_sums = np.zeros(chunks.shape[:2] + chunks.shape[-1:], np.float32)
+    for c in range(tile // k):
+        tile_sums += chunks[:, :, c]
+    if tile_sums.shape[-1] == 8:   # column c + 4 added to column c
+        tile_sums = tile_sums[..., :4] + tile_sums[..., 4:]
+    acc = np.zeros((n, 4), np.float32)
+    for t in range(tile_sums.shape[1]):
+        acc += tile_sums[:, t]
+    return acc[:, :3] - acc[:, 3:] * q
+
+
+def _raw_plummer(n, seed):
+    """The bench path's scene: raw Plummer positions and gm = fl32(G*m)."""
+    from nbody_tpu_torch.models.plummer import plummer_scene
+
+    q, _, m = plummer_scene(n, seed=seed)
+    return q.astype(np.float32), (G * m).astype(np.float32)
+
+
+def test_tf32_rounding_on_hand_made_values():
+    """cvt.rn: to nearest at tf32's 11 significant bits, ties to even (ties
+    away from zero would take 1 + 2^-11 to 1 + 2^-10)."""
+    one = 1.0
+    x = np.asarray([one, one + 2 ** -11, -(one + 2 ** -11),
+                    one + 2 ** -11 + 2 ** -23, one + 3 * 2 ** -11, 3.0,
+                    2.0 ** -130], np.float32)
+    want = np.asarray([one, one, -one, one + 2 ** -10, one + 2 ** -9, 3.0,
+                       2.0 ** -130], np.float32)
+    np.testing.assert_array_equal(_tf32_np(x), want)
+
+
+@pytest.mark.parametrize("rounding", ["rn", "rz"])
+@pytest.mark.parametrize("gram,accum", VARIANTS)
+@pytest.mark.parametrize("scene", ["randn128", "randn96", "plummer2048"])
+def test_kernel_emulation_within_card_tol(scene, gram, accum, rounding):
+    """The emulation of kernel B3's accumulation against the plain version,
+    as chip_smoke.py phase 7 holds the kernel: relative to the larger of
+    the row's peak and the peak of highest:highest on the scene for the
+    bf16-Gram variants, to the peak otherwise. On these scenes the
+    emulation stays under 1.2e-5 with either rounding of the mma's sums, a
+    margin of 8x on CARD_TOL. (The FMA fold of default:highest rounds no
+    mma sum; it runs under both ids.)"""
+    q, gm = (_inputs(7, int(scene[5:])) if scene.startswith("randn")
+             else _raw_plummer(2048, 2))
+    ref = _ref(q, gm, gram=gram, accum=accum)
+    floor = float(np.abs(ref).max())
+    if gram == "default":
+        floor = float(np.abs(_ref(q, gm)).max())
+    scale = np.maximum(np.abs(ref).max(1, keepdims=True), floor)
+    err = float((np.abs(_numpy_mma(q, gm, gram, accum, rounding) - ref)
+                 / scale).max())
+    assert err <= CARD_TOL / 4
+
+
 @pytest.mark.parametrize("n,tile_i,tile_j", [(128, 32, 64), (128, 64, 32),
                                              (128, 128, 128), (96, 32, 48)])
 def test_plain_matches_pallas_interpret(n, tile_i, tile_j):
@@ -277,6 +414,25 @@ def test_kernel_matches_plain_on_card(cuda, gram, accum, n):
     ref = accel_mxu_ref(q, gm, eps=EPS, gram=gram, accum=accum)
     err = float((got - ref).abs().max())
     assert err <= CARD_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gram,accum", VARIANTS)
+@pytest.mark.parametrize("n", [2048, 1000])
+def test_kernel_matches_plain_on_raw_plummer_on_card(cuda, gram, accum, n):
+    """The bench path's kind of scene, ragged at n=1000, where the Gram's
+    cancellation clamps close pairs: each row relative to the larger of its
+    own peak and highest:highest's peak, as chip_smoke.py phase 7 holds
+    it."""
+    q, gm = (torch.from_numpy(x).to(cuda) for x in _raw_plummer(n, 2))
+    got = accel_mxu(q, gm, eps=EPS, gram=gram, accum=accum)
+    again = accel_mxu(q, gm, eps=EPS, gram=gram, accum=accum)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = accel_mxu_ref(q, gm, eps=EPS, gram=gram, accum=accum)
+    floor = float(accel_mxu_ref(q, gm, eps=EPS).abs().max())
+    scale = ref.abs().amax(dim=1, keepdim=True).clamp(min=floor)
+    assert float(((got - ref).abs() / scale).max()) <= CARD_TOL
 
 
 @pytest.mark.cuda
