@@ -14,8 +14,11 @@ twin with the same op order, which the tests hold against the JAX package.
 
 `simulate` is the general API ("integrate this system for N steps"): in
 'f32' it runs kernel B2 (csrc/accel_f32.cu), a hand-written CUDA fp32
-all-pairs rsqrt force, and in 'f64'/'e64' kernel B1. This package imports
-neither `jax` nor `nbody_tpu`.
+all-pairs rsqrt force, in 'f64'/'e64'/'dd' kernel B1, and beyond binary64
+('tf3', 'ddp', 'dd+') kernel B4 (csrc/accel_dd.cu) in double-double. The
+graded solve's 'tf3' runs the double-double graded step kernel
+(csrc/graded_step_dd.cu), and every driver can checkpoint and resume. This
+package imports neither `jax` nor `nbody_tpu`.
 """
 
 from .config import SimConfig

@@ -31,9 +31,11 @@ class SimConfig:
     # --- numerics ---
     # How (d2)^1.5 is computed. None resolves per engine path: 'pow' for the
     # native exact mode (the golden generator's serial semantics) and
-    # 'dsqrt' (d2*sqrt(d2)) for the fp64 device path, which implements only
-    # that form: it uses correctly rounded IEEE ops alone, so the CUDA
-    # kernel and the native core agree bit for bit.
+    # 'dsqrt' (d2*sqrt(d2)) for the binary64 device path, which also takes
+    # 'sqrt3' (sqrt((d2*d2)*d2)): both are correctly rounded IEEE ops alone,
+    # so the CUDA kernels and the native core agree bit for bit in either.
+    # It refuses 'pow' (libm's pow, which neither CUDA nor torch
+    # reproduces). 'f32' and 'tf3' have one force form each and ignore it.
     dist3_mode: str | None = None  # None | 'pow' | 'dsqrt' | 'sqrt3'
 
     def resolved_dist3(self, precision: str = "f64") -> str:

@@ -8,7 +8,7 @@
 //
 //   dx = q_j - q_i                       (likewise dy, dz)
 //   d2 = ((dx*dx + dy*dy) + dz*dz) + eps2
-//   d3 = d2 * sqrt(d2)
+//   d3 = d2 * sqrt(d2)                   (dsqrt; sqrt3: sqrt((d2*d2)*d2))
 //   a_i += (gm_j * dx) / d3              for j = 0, 1, ..., n-1 in order
 //
 // Every operation is an explicit round-to-nearest intrinsic and the file is
@@ -45,6 +45,9 @@ constexpr int THREADS = 256;  // R * TJ / THREADS = 4 pair terms per thread
 static_assert(THREADS >= 4 * TJ, "one staging load per thread");
 static_assert(THREADS >= 3 * R, "one fold thread per row and component");
 
+// dist3: the form of d2^1.5 (forces.cuh), a template argument, so the
+// dsqrt instantiation is the same code whatever the other form costs
+template <int dist3>
 __global__ void __launch_bounds__(THREADS)
 accel_f64_kernel(const double* __restrict__ q, const double* __restrict__ gm,
                  double* __restrict__ a, int n, double eps2) {
@@ -83,10 +86,10 @@ accel_f64_kernel(const double* __restrict__ q, const double* __restrict__ gm,
         for (int p = tid; p < R * TJ; p += THREADS) {
             const int r = p / TJ, jj = p % TJ;
             if (i0 + r >= n || jj >= cols) continue;
-            nbody::b1_pair_term(s_qj[0][jj], s_qj[1][jj], s_qj[2][jj],
-                                s_gm[jj], s_qi[0][r], s_qi[1][r], s_qi[2][r],
-                                eps2, s_term[0][r][jj], s_term[1][r][jj],
-                                s_term[2][r][jj]);
+            nbody::b1_pair_term<dist3>(
+                s_qj[0][jj], s_qj[1][jj], s_qj[2][jj], s_gm[jj], s_qi[0][r],
+                s_qi[1][r], s_qi[2][r], eps2, s_term[0][r][jj],
+                s_term[1][r][jj], s_term[2][r][jj]);
         }
         __syncthreads();
 
@@ -101,12 +104,22 @@ accel_f64_kernel(const double* __restrict__ q, const double* __restrict__ gm,
 
 }  // namespace
 
+// dist3: 1 dsqrt, 2 sqrt3 (native/core.cc's numbers); anything else, or
+// an empty shape, returns cudaErrorInvalidValue without launching.
 extern "C" int accel_f64_launch(const double* q, const double* gm, double* a,
-                                int B, int n, double eps2, void* stream) {
+                                int B, int n, double eps2, int dist3,
+                                void* stream) {
     if (B <= 0 || B > 65535 || n <= 0)  // B rides gridDim.y
         return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid((n + R - 1) / R, B);
-    accel_f64_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        q, gm, a, n, eps2);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dist3 == nbody::DIST3_DSQRT)
+        accel_f64_kernel<nbody::DIST3_DSQRT><<<grid, THREADS, 0, s>>>(
+            q, gm, a, n, eps2);
+    else if (dist3 == nbody::DIST3_SQRT3)
+        accel_f64_kernel<nbody::DIST3_SQRT3><<<grid, THREADS, 0, s>>>(
+            q, gm, a, n, eps2);
+    else
+        return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());
 }

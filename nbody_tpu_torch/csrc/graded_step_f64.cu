@@ -13,7 +13,8 @@
 //
 // every op a round-to-nearest intrinsic (and -fmad=false), so the result is
 // bit-equal to kernel B1 plus the PyTorch ops of the drivers' plain chunk
-// (ops/graded_step.py) and to native/core.cc in dsqrt mode.
+// (ops/graded_step.py) and to native/core.cc in the same dist3 mode (dsqrt
+// or sqrt3, one instantiation each).
 //
 // Layout: a block owns R rows of one scenario row b (grid ceil(n / R) x B;
 // at n = 1024 that is 256 blocks a row, about two per SM). It is warp
@@ -63,6 +64,9 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
     asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
+// dist3: the form of d2^1.5 (forces.cuh), a template argument, so the
+// dsqrt instantiation is the same code whatever the other form costs
+template <int dist3>
 __global__ void __launch_bounds__(THREADS, 2)
 graded_step_f64_kernel(GradedArgs<double> a, const double* __restrict__ q_in,
                        const double* __restrict__ v_in,
@@ -108,7 +112,7 @@ graded_step_f64_kernel(GradedArgs<double> a, const double* __restrict__ q_in,
             const int j = k * TJ + jj;
             if (live && j < n) {
                 const double* qj = qb + static_cast<size_t>(j) * 3;
-                nbody::b1_pair_term(
+                nbody::b1_pair_term<dist3>(
                     qj[0], qj[1], qj[2],
                     nbody::graded_gm(a.m0[mb + j], a.mh[mb + j], f, a.G),
                     xi, yi, zi, a.eps2, s_term[buf][0][r][jj],
@@ -168,25 +172,32 @@ fold_floor_f64_kernel(const double* __restrict__ x, double* __restrict__ out,
 // the state (q, v), (B, n, 3) each; the result lies in (q, v) if s1 - s0 is
 // even, else in (q2, v2). arr2 is the second arrival buffer (see
 // graded.cuh), equal to arr on entry. Pointers a mode does not use may be
-// null. Returns the first launch error, or cudaErrorInvalidValue without
-// launching.
+// null. dist3: 1 dsqrt, 2 sqrt3 (native/core.cc's numbers). Returns the
+// first launch error, or cudaErrorInvalidValue without launching.
 extern "C" int graded_chunk_f64_launch(
         double* q, double* v, double* q2, double* v2, const double* m0,
         const double* mh, const double* fst, const double* md2,
         const long long* others, long long* arr, long long* arr2,
         long long* hit, unsigned char* flag, double* min_d2, double* q_snap,
-        double* v_snap, int mode, int B, int n, int D, int planet, double G,
-        double dt, double eps2, double r2, int s0, int s1, void* stream) {
-    if (!nbody::graded_args_ok(mode, B, n, D, s0, s1))
+        double* v_snap, int mode, int B, int n, int D, int planet, int dist3,
+        double G, double dt, double eps2, double r2, int s0, int s1,
+        void* stream) {
+    if (!nbody::graded_args_ok(mode, B, n, D, s0, s1)
+        || (dist3 != nbody::DIST3_DSQRT && dist3 != nbody::DIST3_SQRT3))
         return static_cast<int>(cudaErrorInvalidValue);
     const GradedArgs<double> a{m0, mh, fst, md2, others, {arr, arr2}, hit,
                                flag, min_d2, q_snap, v_snap, mode, B, n, D,
                                planet, G, dt, eps2, r2};
     const dim3 grid((n + R - 1) / R, B);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dist3 == nbody::DIST3_DSQRT)
+        return nbody::graded_chunk(
+            graded_step_f64_kernel<nbody::DIST3_DSQRT>,
+            graded_check_f64_kernel, grid, THREADS, CHECK_THREADS, a, q, v,
+            q2, v2, s0, s1, s);
     return nbody::graded_chunk(
-        graded_step_f64_kernel, graded_check_f64_kernel, grid, THREADS,
-        CHECK_THREADS, a, q, v, q2, v2, s0, s1,
-        static_cast<cudaStream_t>(stream));
+        graded_step_f64_kernel<nbody::DIST3_SQRT3>, graded_check_f64_kernel,
+        grid, THREADS, CHECK_THREADS, a, q, v, q2, v2, s0, s1, s);
 }
 
 extern "C" int fold_floor_f64_launch(const double* x, double* out,

@@ -16,7 +16,9 @@ import torch
 from .config import DEFAULT_CONFIG, PRECISIONS, SimConfig
 from .device import resolve_device
 from .io import Scene
-from .models.direct_sum import run_problem_3, run_problems_12, run_problems_123
+from .models.direct_sum import DD, run_problem_3, run_problems_12, \
+    run_problems_123
+from .ops.forces import check_dist3
 from .physics import missile_cost_for_arrival, oscillation_table
 from .utils.profiling import PhaseTimers
 from .utils.rescale import IDENTITY, compute_rescale
@@ -58,13 +60,17 @@ def select_winner(scene: Scene, arrivals: np.ndarray, saved: np.ndarray,
 
 def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
                 precision: str = "f64", device: str = "cuda",
-                timers: PhaseTimers | None = None) -> Answers:
+                timers: PhaseTimers | None = None,
+                checkpoint_path: str | None = None) -> Answers:
     """Answer all three problems for a scene.
 
     precision:
       'f64' — native IEEE binary64 on `device` with the serial ascending-j
-              force fold (kernel B1 on CUDA), bit-identical to native/core.cc
-              in dsqrt mode. The default.
+              force fold (the fp64 graded step kernel on CUDA, kernel B1's
+              force), bit-identical to native/core.cc in the same dist3
+              mode: `cfg.dist3_mode` 'dsqrt' (the default) or 'sqrt3';
+              'pow' is refused (libm's pow, which the native core calls,
+              is reproduced by neither CUDA nor torch).
       'e64', 'dd', 'ddp', 'dd+' — the same path as 'f64'. On the TPU, which
               has no binary64, they are emulations that approach it: 'e64'
               a bit-exact softfloat, 'dd' XLA's double-double, 'ddp' (alias
@@ -75,33 +81,39 @@ def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
               float32), force kernel B2 over the scenario batch; the min
               distance is scaled back. Not answer-grade: its trajectories
               drift from binary64's, so a knife-edge answer may differ.
-      'tf3' — the JAX package's truth-grade triple-float32 trajectories,
-              precision beyond binary64: not ported yet (ROADMAP Queue 1
-              item 6), raises NotImplementedError.
-      'exact' — the native serial core (libm pow), on the host.
+              One force form, whatever dist3_mode says.
+      'tf3' — precision beyond binary64, the referee of a knife-edge answer:
+              whether a graded answer comes from binary64's rounding. The
+              JAX package carries triple-float32 (about 2^-70 an op), which
+              a TPU needs for want of binary64; the card runs double-double
+              binary64 (about 2^-104 an op, binary64's range, no rescale)
+              through the double-double graded step kernel (kernel B4's
+              force). The answers are rounded to binary64 at the end. One
+              force form, whatever dist3_mode says.
+      'exact' — the native serial core (libm pow unless dist3_mode says
+              otherwise), on the host.
     device: 'cuda' (raises without a card) or 'cpu' (the plain PyTorch path).
+    checkpoint_path: every driver saves its carry after each chunk and
+    resumes from it (models/direct_sum.py); a resumed run is bitwise equal
+    to one that never stopped. Not used by 'exact'.
     """
     if precision == "exact":
         from .native import solve_exact
         return Answers(*solve_exact(scene, cfg,
                                     dist3_mode=cfg.resolved_dist3("exact")))
-    if precision == "tf3":
-        raise NotImplementedError(
-            "precision 'tf3' (beyond binary64) is not ported to "
-            "nbody_tpu_torch yet (ROADMAP Queue 1 item 6); use 'f64' or "
-            "'exact'")
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision: {precision}")
-    rescale, run_scene, run_cfg, dtype = IDENTITY, scene, cfg, torch.float64
+    rescale, run_scene, dtype = IDENTITY, scene, torch.float64
+    run_cfg = dataclasses.replace(cfg, dist3_mode=cfg.resolved_dist3())
     if precision == "f32":
         rescale = compute_rescale(scene, eps=cfg.eps, G=cfg.G)
         run_scene = rescale.apply_scene(scene)
-        run_cfg = rescale.apply_cfg(cfg)
+        run_cfg = rescale.apply_cfg(run_cfg)
         dtype = torch.float32
-    elif cfg.dist3_mode not in (None, "dsqrt"):
-        raise ValueError(
-            f"precision {precision!r} implements only the dsqrt dist3 form "
-            f"(d2 * sqrt(d2)); got dist3_mode={cfg.dist3_mode!r}")
+    elif precision == "tf3":
+        dtype = DD
+    else:
+        check_dist3(cfg.dist3_mode, precision)
     dev = resolve_device(device)
     if timers is None:
         timers = PhaseTimers(dev)
@@ -111,7 +123,8 @@ def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
     if scene.device_cnt > 0 and scene.n <= FUSED_MAX_N:
         with timers.phase("problems_fused"):
             p123 = run_problems_123(run_scene, fst, run_cfg, device=dev,
-                                    dtype=dtype)
+                                    dtype=dtype,
+                                    checkpoint_path=checkpoint_path)
         winner = (-1, 0.0)
         if p123.hit_time_step != -2:
             winner = select_winner(scene, p123.arrivals, p123.saved, cfg)
@@ -120,12 +133,13 @@ def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
 
     with timers.phase("problem_1_2"):
         p12 = run_problems_12(run_scene, fst, run_cfg, device=dev,
-                              dtype=dtype)
+                              dtype=dtype, checkpoint_path=checkpoint_path)
     winner = (-1, 0.0)
     if p12.hit_time_step != -2 and scene.device_cnt > 0:
         with timers.phase("problem_3"):
             saved = run_problem_3(run_scene, p12, fst, run_cfg, device=dev,
-                                  dtype=dtype)
+                                  dtype=dtype,
+                                  checkpoint_path=checkpoint_path)
         winner = select_winner(scene, p12.arrivals, saved, cfg)
     return Answers(rescale.unscale_length(p12.min_dist), p12.hit_time_step,
                    *winner)

@@ -23,10 +23,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libnbody_kernels.so")
-SOURCES = ("accel_f64.cu", "accel_f32.cu", "accel_mxu.cu",
-           "graded_step_f64.cu", "graded_step_f32.cu")
-# -fmad=false: no a*b+c contraction anywhere on the fp64 path (kernel B1 also
-# spells every op as a round-to-nearest intrinsic). It applies to the whole
+SOURCES = ("accel_f64.cu", "accel_f32.cu", "accel_mxu.cu", "accel_dd.cu",
+           "graded_step_f64.cu", "graded_step_f32.cu", "graded_step_dd.cu")
+# -fmad=false: no a*b+c contraction anywhere on the fp64 path (kernels B1 and
+# B4 also spell every op as a round-to-nearest intrinsic; B4's one fused
+# multiply-add, the exact product error, is an explicit __fma_rn, which the
+# flag leaves alone). It applies to the whole
 # library, so kernels B2's and B3's fp32 multiply-adds are not fused either
 # (the cost is noted in csrc/accel_f32.cu; for B3 it keeps every product and
 # sum rounded as the plain version rounds them)
@@ -110,6 +112,14 @@ def load() -> ctypes.CDLL:
     lib.accel_f64_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, gm, a
         ctypes.c_int, ctypes.c_int, ctypes.c_double,         # B, n, eps2
+        ctypes.c_int,                                        # dist3
+        ctypes.c_void_p,                                     # cudaStream_t
+    ]
+    lib.accel_dd_launch.restype = ctypes.c_int
+    lib.accel_dd_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, gm, a
+        ctypes.c_int, ctypes.c_int,                          # B, n
+        ctypes.c_double, ctypes.c_double,                    # eps2 hi, lo
         ctypes.c_void_p,                                     # cudaStream_t
     ]
     lib.accel_f32_launch.restype = ctypes.c_int
@@ -131,16 +141,20 @@ def load() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int,                # gram_bf16, accum_bf16
         ctypes.c_void_p,                                     # cudaStream_t
     ]
-    for name, real in (("graded_chunk_f64_launch", ctypes.c_double),
-                       ("graded_chunk_f32_launch", ctypes.c_float)):
+    # graded_chunk_*_launch: the ints after (mode, B, n, D, planet), then
+    # G, dt, eps2, r2 (each as (hi, lo) for double-double)
+    for name, ints, real, reals in (
+            ("graded_chunk_f64_launch", 1, ctypes.c_double, 4),   # dist3
+            ("graded_chunk_f32_launch", 0, ctypes.c_float, 4),
+            ("graded_chunk_dd_launch", 0, ctypes.c_double, 8)):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [
             *[ctypes.c_void_p] * 16,   # q, v, q2, v2, m0, mh, fst, md2,
             #                            others, arr, arr2, hit, flag,
             #                            min_d2, q_snap, v_snap
-            *[ctypes.c_int] * 5,       # mode, B, n, D, planet
-            *[real] * 4,               # G, dt, eps2, r2
+            *[ctypes.c_int] * (5 + ints),
+            *[real] * reals,
             ctypes.c_int, ctypes.c_int,                      # s0, s1
             ctypes.c_void_p,                                 # cudaStream_t
         ]

@@ -11,14 +11,16 @@ native/core.cc computes in dsqrt mode:
     d3 = d2 * sqrt(d2);  a_i = fold over ascending j of (gm_j * dx) / d3
 
 with gm = fl(G * m_eff) hoisted by the caller. The j == i term is +-0 and is
-folded unmasked, as on the TPU.
+folded unmasked, as on the TPU. `dist3_mode='sqrt3'` forms d3 as
+sqrt((d2*d2)*d2) instead, a second instantiation of the kernel, bit-equal
+to the native core's sqrt3 mode.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .forces import _sqrt_rn
+from .forces import DIST3_CODES, dist3
 
 
 def _check(q: torch.Tensor, gm: torch.Tensor) -> None:
@@ -36,8 +38,8 @@ def _check(q: torch.Tensor, gm: torch.Tensor) -> None:
         raise ValueError("accel_f64 takes contiguous tensors")
 
 
-def accel_f64_ref(q: torch.Tensor, gm: torch.Tensor, *,
-                  eps: float) -> torch.Tensor:
+def accel_f64_ref(q: torch.Tensor, gm: torch.Tensor, *, eps: float,
+                  dist3_mode: str = "dsqrt") -> torch.Tensor:
     """Plain PyTorch twin of kernel B1: a loop over j of batched tensor ops
     in the kernel's exact op order. q (B, n, 3), gm (B, n) float64."""
     eps2 = eps * eps
@@ -46,20 +48,22 @@ def accel_f64_ref(q: torch.Tensor, gm: torch.Tensor, *,
         dq = q[:, j:j + 1, :] - q                        # q_j - q_i
         dx, dy, dz = dq[..., 0], dq[..., 1], dq[..., 2]
         d2 = ((dx * dx + dy * dy) + dz * dz) + eps2
-        d3 = d2 * _sqrt_rn(d2)
+        d3 = dist3(d2, dist3_mode)
         acc = acc + (gm[:, j, None, None] * dq) / d3[..., None]
     return acc
 
 
-def accel_f64(q: torch.Tensor, gm: torch.Tensor, *,
-              eps: float) -> torch.Tensor:
-    """Accelerations (B, n, 3) of q (B, n, 3) under gm = G*m_eff (B, n).
+def accel_f64(q: torch.Tensor, gm: torch.Tensor, *, eps: float,
+              dist3_mode: str = "dsqrt") -> torch.Tensor:
+    """Accelerations (B, n, 3) of q (B, n, 3) under gm = G*m_eff (B, n),
+    with d2^1.5 formed as `dist3_mode` says ('dsqrt' or 'sqrt3').
 
     Scenario rows b never mix. CUDA tensors run kernel B1 and add one to
     `accel_f64.launches`; CPU tensors run `accel_f64_ref`."""
     _check(q, gm)
+    code = DIST3_CODES[dist3_mode]
     if q.device.type == "cpu":
-        return accel_f64_ref(q, gm, eps=eps)
+        return accel_f64_ref(q, gm, eps=eps, dist3_mode=dist3_mode)
     if q.device.type != "cuda":
         raise ValueError(f"accel_f64 runs on cuda or cpu, not {q.device}")
     from . import _build
@@ -69,7 +73,8 @@ def accel_f64(q: torch.Tensor, gm: torch.Tensor, *,
     with torch.cuda.device(q.device):
         rc = lib.accel_f64_launch(
             q.data_ptr(), gm.data_ptr(), a.data_ptr(), q.shape[0],
-            q.shape[1], eps * eps, torch.cuda.current_stream().cuda_stream)
+            q.shape[1], eps * eps, code,
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"accel_f64 kernel launch failed: CUDA error {rc}")
     accel_f64.launches += 1

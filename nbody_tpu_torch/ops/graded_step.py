@@ -6,16 +6,20 @@ planet-asteroid d², each missile's arrival and the devices-on snapshot
 there, the first hit, and the Problem-3 rows' hits. `graded_chunk(mode, c,
 s0, s1)` takes a `Carry` of that state from step s0 to s1.
 
-On a CUDA tensor it runs the graded step kernels (csrc/graded_step_f64.cu
-for float64, whose force is kernel B1's; csrc/graded_step_f32.cu for
-float32, whose force is kernel B2's): one C call, one launch per step and
-one closing check launch, no host synchronisation. The wrappers
-`graded_step_f64` and `graded_step_f32` count those launches. Only a
-tensor that lies on the CPU goes to the plain version, the per-step PyTorch
-loop `_p12_chunk_ref`, `_p3_chunk_ref` or `_p123_chunk_ref`, whose force is
-`ops/integrate.accel` (kernels B1 and B2 on a card, their plain versions
-on the CPU). Both compute the same bits: every op of the kernels is the
-plain loop's op in the same order (csrc/graded.cuh).
+The state is float64 (the graded answer), float32 (the throughput mode) or
+double-double (precision 'tf3': float64 tensors with a trailing axis of 2,
+(hi, lo), ops/ddfloat). On a CUDA tensor `graded_chunk` runs the graded
+step kernel of that representation (csrc/graded_step_f64.cu, whose force is
+kernel B1's in the carry's dist3 form; csrc/graded_step_f32.cu, kernel
+B2's; csrc/graded_step_dd.cu, kernel B4's): one C call, one launch per step
+and one closing check launch, no host synchronisation. The wrappers
+`graded_step_f64`, `graded_step_f32` and `graded_step_dd` count those
+launches. Only a tensor that lies on the CPU goes to the plain version,
+the per-step PyTorch loop `_p12_chunk_ref`, `_p3_chunk_ref` or
+`_p123_chunk_ref`, whose force is `ops/integrate`'s (kernels B1, B2 and B4
+on a card, their plain versions on the CPU). Both compute the same bits:
+every op of the kernels is the plain loop's op in the same order
+(csrc/graded.cuh).
 
 The JAX package runs the same chunks as compiled scans
 (nbody_tpu/models/direct_sum.py `_p12_chunk`, `_p123_chunk`, `_p3_chunks`).
@@ -27,9 +31,12 @@ import dataclasses
 
 import torch
 
+from . import ddfloat as ddf
+from .accel_dd import eps2_dd
 from .accel_f32 import eps2_f32
-from .forces import sq_dist
-from .integrate import scalar, symplectic_euler_step
+from .forces import DIST3_CODES, sq_dist
+from .integrate import scalar, symplectic_euler_step, \
+    symplectic_euler_step_dd
 
 P12, P3, P123 = 0, 1, 2
 _MAX_B = 65535          # the grid's y limit, which the batch rides
@@ -41,7 +48,9 @@ class Carry:
     chunk functions advance it in place. Rows are scenarios: P12 [P1, P2]
     (P1 alone after the P2 early exit), P3 one row per destroyed device,
     P123 [P1, P2, P3_0, ...]. Constants are the config's (G, eps, dt) and
-    r2, the planet radius squared in the state's dtype."""
+    r2, the planet radius squared in the state's representation (a pair
+    (hi, lo) for double-double), and the binary64 force's dist3 form.
+    A double-double carry's real tensors have a trailing axis of 2."""
     q: torch.Tensor             # (B, n, 3) float64 or float32
     v: torch.Tensor             # (B, n, 3)
     m0: torch.Tensor            # (B, n) base masses
@@ -54,24 +63,91 @@ class Carry:
     G: float
     eps: float
     dt: float
-    r2: float
+    r2: float | tuple[float, float]
     md2: torch.Tensor | None = None     # (n_steps + 1,) missile radius²
     min_d2: torch.Tensor | None = None  # () running min of P1's d²
     p3_hit: torch.Tensor | None = None  # bool (D,), P123
     q_snap: torch.Tensor | None = None  # (D, n, 3) P2 at each arrival, P12
     v_snap: torch.Tensor | None = None
+    dist3: str = "dsqrt"                # float64: 'dsqrt' or 'sqrt3'
 
 
-def _planet_d2(q: torch.Tensor, planet: int,
+def is_dd(x: torch.Tensor) -> bool:
+    """Whether a carry tensor is double-double: float64 with a trailing
+    axis of 2 after the shape it stands for (the state's (B, n, 3) or a
+    scalar such as the min d²). The one test of the representation."""
+    return x.dtype == torch.float64 and x.dim() > 0 and x.shape[-1] == 2
+
+
+class _Native:
+    """The plain chunks' arithmetic on float64 and float32 tensors."""
+
+    @staticmethod
+    def step(c: Carry, q, v, s: int):
+        return symplectic_euler_step(q, v, c.m0 + c.m_half * c.fst[s],
+                                     G=c.G, eps=c.eps, dt=c.dt,
+                                     dist3_mode=c.dist3)
+
+    @staticmethod
+    def d2(qa, qb):
+        return sq_dist(qa, qb)
+
+    @staticmethod
+    def lt(a, b):
+        return a < b
+
+    @staticmethod
+    def minimum(a, b):
+        return torch.minimum(a, b)
+
+    @staticmethod
+    def r2(c: Carry):
+        return c.r2
+
+
+class _DD:
+    """The same in double-double (ops/ddfloat), the ops of
+    csrc/graded_step_dd.cu in its order."""
+
+    @staticmethod
+    def step(c: Carry, q, v, s: int):
+        m_eff = ddf.add(ddf.split(c.m0),
+                        ddf.mul(ddf.split(c.m_half), ddf.split(c.fst[s])))
+        return symplectic_euler_step_dd(q, v, ddf.join(m_eff), G=c.G,
+                                        eps=c.eps, dt=c.dt)
+
+    @staticmethod
+    def d2(qa, qb):
+        return ddf.join(ddf.sq_dist(ddf.split(qa), ddf.split(qb)))
+
+    @staticmethod
+    def lt(a, b):
+        return ddf.lt(ddf.split(a), ddf.split(b))
+
+    @staticmethod
+    def minimum(a, b):
+        return ddf.join(ddf.minimum(ddf.split(a), ddf.split(b)))
+
+    @staticmethod
+    def r2(c: Carry):
+        return torch.tensor(c.r2, dtype=torch.float64, device=c.q.device)
+
+
+def arith(q: torch.Tensor):
+    """The plain chunks' arithmetic for a state tensor."""
+    return _DD if is_dd(q) else _Native
+
+
+def _rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-row mask shaped to broadcast over x's trailing axes."""
+    return mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
+
+
+def _planet_d2(ar, q: torch.Tensor, planet: int,
                others: torch.Tensor) -> torch.Tensor:
     """(B, K) squared distances from the planet to bodies `others` in every
     scenario row of q (B, n, 3)."""
-    return sq_dist(q[:, planet:planet + 1, :], q[:, others, :])
-
-
-def _step(c: Carry, q, v, s: int):
-    return symplectic_euler_step(q, v, c.m0 + c.m_half * c.fst[s], G=c.G,
-                                 eps=c.eps, dt=c.dt)
+    return ar.d2(q[:, planet:planet + 1], q[:, others])
 
 
 def _p12_chunk_ref(c: Carry, s0: int, s1: int) -> None:
@@ -80,18 +156,20 @@ def _p12_chunk_ref(c: Carry, s0: int, s1: int) -> None:
     q, v, arr, hit, min_d2 = c.q, c.v, c.arr, c.hit, c.min_d2
     q_snap, v_snap = c.q_snap, c.v_snap
     live = q.shape[0] == 2
+    ar = arith(q)
+    r2 = ar.r2(c)
     for s in range(s0 + 1, s1 + 1):
-        q, v = _step(c, q, v, s)
-        d2 = _planet_d2(q, c.planet, c.others)   # (rows, 1 + D)
-        min_d2 = torch.minimum(min_d2, d2[0, 0])
+        q, v = ar.step(c, q, v, s)
+        d2 = _planet_d2(ar, q, c.planet, c.others)   # (rows, 1 + D)
+        min_d2 = ar.minimum(min_d2, d2[0, 0])
         if not live:
             continue
-        arrived = (arr == -2) & (d2[1, 1:] < c.md2[s])
+        arrived = (arr == -2) & ar.lt(d2[1, 1:], c.md2[s])
         arr = torch.where(arrived, s, arr)
-        sel = arrived[:, None, None]
+        sel = _rows(arrived, q_snap)
         q_snap = torch.where(sel, q[1], q_snap)
         v_snap = torch.where(sel, v[1], v_snap)
-        hit = torch.where((hit == -2) & (d2[1, 0] < c.r2), s, hit)
+        hit = torch.where((hit == -2) & ar.lt(d2[1, 0], r2), s, hit)
     c.q, c.v, c.arr, c.hit, c.min_d2 = q, v, arr, hit, min_d2
     c.q_snap, c.v_snap = q_snap, v_snap
 
@@ -101,13 +179,15 @@ def _p3_chunk_ref(c: Carry, s0: int, s1: int) -> None:
     arrival on (destruction acts after the arrival) and flags its hits."""
     q, v, hit = c.q, c.v, c.hit
     asteroid = int(c.others[0])
+    ar = arith(q)
+    r2 = ar.r2(c)
     for s in range(s0 + 1, s1 + 1):
         active = c.arr < s
-        q2, v2 = _step(c, q, v, s)
-        q = torch.where(active[:, None, None], q2, q)
-        v = torch.where(active[:, None, None], v2, v)
-        pa = sq_dist(q[:, c.planet], q[:, asteroid])
-        hit = hit | (active & (pa < c.r2))
+        q2, v2 = ar.step(c, q, v, s)
+        q = torch.where(_rows(active, q), q2, q)
+        v = torch.where(_rows(active, v), v2, v)
+        pa = ar.d2(q[:, c.planet], q[:, asteroid])
+        hit = hit | (active & ar.lt(pa, r2))
     c.q, c.v, c.hit = q, v, hit
 
 
@@ -119,21 +199,23 @@ def _p123_chunk_ref(c: Carry, s0: int, s1: int) -> None:
     q, v, arr, hit, min_d2, p3_hit = (c.q, c.v, c.arr, c.hit, c.min_d2,
                                       c.p3_hit)
     p1p2_rows = torch.zeros((2,), dtype=torch.bool, device=q.device)
+    ar = arith(q)
+    r2 = ar.r2(c)
     for s in range(s0 + 1, s1 + 1):
         pending = arr == -2                  # before this step's arrivals
-        q, v = _step(c, q, v, s)
-        d2 = _planet_d2(q, c.planet, c.others)   # before the mirror
-        min_d2 = torch.minimum(min_d2, d2[0, 0])
-        arr = torch.where(pending & (d2[1, 1:] < c.md2[s]), s, arr)
+        q, v = ar.step(c, q, v, s)
+        d2 = _planet_d2(ar, q, c.planet, c.others)   # before the mirror
+        min_d2 = ar.minimum(min_d2, d2[0, 0])
+        arr = torch.where(pending & ar.lt(d2[1, 1:], c.md2[s]), s, arr)
         # mirror the P2 row into pending and just-arrived P3 rows
-        copy = torch.cat([p1p2_rows, pending])[:, None, None]
+        copy = _rows(torch.cat([p1p2_rows, pending]), q)
         q = torch.where(copy, q[1:2], q)
         v = torch.where(copy, v[1:2], v)
         # a mirrored row's planet-asteroid d² is the P2 row's; P3 rows are
         # checked from their arrival step on (hw5.cu:292-298)
-        d2_p3 = torch.where(pending, d2[1, 0], d2[2:, 0])
-        p3_hit = p3_hit | ((arr != -2) & (d2_p3 < c.r2))
-        hit = torch.where((hit == -2) & (d2[1, 0] < c.r2), s, hit)
+        d2_p3 = torch.where(_rows(pending, d2[2:, 0]), d2[1, 0], d2[2:, 0])
+        p3_hit = p3_hit | ((arr != -2) & ar.lt(d2_p3, r2))
+        hit = torch.where((hit == -2) & ar.lt(d2[1, 0], r2), s, hit)
     c.q, c.v, c.arr, c.hit, c.min_d2, c.p3_hit = (q, v, arr, hit, min_d2,
                                                   p3_hit)
 
@@ -146,12 +228,13 @@ def _check(mode: int, c: Carry, s0: int, s1: int) -> None:
         raise ValueError(f"unknown graded mode {mode!r}")
     dtype = c.q.dtype
     if dtype not in (torch.float64, torch.float32):
-        raise TypeError(f"graded_chunk takes a float64 or float32 state, "
-                        f"got {dtype}")
-    if c.q.dim() != 3 or c.q.shape[-1] != 3 or c.q.shape[0] < 1 \
-            or c.q.shape[1] < 1:
-        raise ValueError(f"graded_chunk takes q (B, n, 3), B, n >= 1, got "
-                         f"{tuple(c.q.shape)}")
+        raise TypeError(f"graded_chunk takes a float64, float32 or "
+                        f"double-double state, got {dtype}")
+    tail = (2,) if is_dd(c.q) else ()
+    if c.q.dim() != 3 + len(tail) or c.q.shape[2:] != (3, *tail) \
+            or c.q.shape[0] < 1 or c.q.shape[1] < 1:
+        raise ValueError(f"graded_chunk takes q (B, n, 3), or (B, n, 3, 2) "
+                         f"double-double, B, n >= 1, got {tuple(c.q.shape)}")
     B, n = c.q.shape[:2]
     D = c.others.shape[0] - 1
     real = {"v": (c.v, (B, n, 3)), "m0": (c.m0, (B, n)),
@@ -176,14 +259,14 @@ def _check(mode: int, c: Carry, s0: int, s1: int) -> None:
     if not 1 <= B <= _MAX_B:
         raise ValueError(f"graded_chunk takes 1 <= B <= {_MAX_B}, got {B}")
     tensors = [("q", c.q, dtype)]
-    for kinds, want in ((real, dtype), (ints, torch.int64),
-                        (flags, torch.bool)):
+    for kinds, want, extra in ((real, dtype, tail), (ints, torch.int64, ()),
+                               (flags, torch.bool, ())):
         for name, (x, shape) in kinds.items():
             if x is None:
                 raise ValueError(f"graded mode {mode} needs {name}")
-            if shape is not None and tuple(x.shape) != shape:
+            if shape is not None and tuple(x.shape) != shape + extra:
                 raise ValueError(f"{name} has shape {tuple(x.shape)}, not "
-                                 f"{shape}")
+                                 f"{shape + extra}")
             tensors.append((name, x, want))
     for name, x, want in tensors:
         if x.dtype != want:
@@ -194,13 +277,21 @@ def _check(mode: int, c: Carry, s0: int, s1: int) -> None:
             raise ValueError(f"graded_chunk takes contiguous tensors ({name})")
     for table in ("fst", "md2"):
         x = getattr(c, table)
-        if x is not None and (x.dim() != 1 or x.shape[0] <= s1):
-            raise ValueError(f"{table} must be 1-D with more than s1 = {s1} "
-                             f"entries, got {tuple(x.shape)}")
+        if x is not None and (x.dim() != 1 + len(tail) or x.shape[0] <= s1
+                              or tuple(x.shape[1:]) != tail):
+            raise ValueError(f"{table} must be 1-D (of pairs, double-double) "
+                             f"with more than s1 = {s1} entries, got "
+                             f"{tuple(x.shape)}")
     if not 0 <= s0 < s1:
         raise ValueError(f"graded_chunk takes 0 <= s0 < s1, got {s0}, {s1}")
     if not 0 <= c.planet < n:
         raise ValueError(f"planet {c.planet} outside 0..{n - 1}")
+    if tail and len(c.r2) != 2:
+        raise ValueError(f"a double-double carry takes r2 as (hi, lo), got "
+                         f"{c.r2!r}")
+    if dtype == torch.float64 and not tail and c.dist3 not in DIST3_CODES:
+        raise ValueError(f"the binary64 step takes dist3 'dsqrt' or 'sqrt3', "
+                         f"got {c.dist3!r}")
 
 
 def _launch(fn, mode: int, c: Carry, s0: int, s1: int) -> None:
@@ -213,19 +304,27 @@ def _launch(fn, mode: int, c: Carry, s0: int, s1: int) -> None:
     q2, v2 = torch.empty_like(c.q), torch.empty_like(c.v)
     arr2 = c.arr if mode == P3 else c.arr.clone()
     flag = c.hit if mode == P3 else c.p3_hit
-    f32 = c.q.dtype == torch.float32
-    eps2 = eps2_f32(c.eps) if f32 else c.eps * c.eps
+    if is_dd(c.q):
+        launch = lib.graded_chunk_dd_launch
+        ints = ()
+        reals = (c.G, 0.0, c.dt, 0.0, *eps2_dd(c.eps), *c.r2)
+    elif c.q.dtype == torch.float32:
+        launch = lib.graded_chunk_f32_launch
+        ints = ()
+        reals = (scalar(c.G, c.q.dtype), scalar(c.dt, c.q.dtype),
+                 eps2_f32(c.eps), c.r2)
+    else:
+        launch = lib.graded_chunk_f64_launch
+        ints = (DIST3_CODES[c.dist3],)
+        reals = (c.G, c.dt, c.eps * c.eps, c.r2)
     ptr = lambda x: None if x is None else x.data_ptr()   # noqa: E731
-    launch = lib.graded_chunk_f32_launch if f32 else \
-        lib.graded_chunk_f64_launch
     with torch.cuda.device(c.q.device):
         rc = launch(
             ptr(c.q), ptr(c.v), ptr(q2), ptr(v2), ptr(c.m0), ptr(c.m_half),
             ptr(c.fst), ptr(c.md2), ptr(c.others), ptr(c.arr), ptr(arr2),
             None if mode == P3 else ptr(c.hit), ptr(flag), ptr(c.min_d2),
             ptr(c.q_snap), ptr(c.v_snap), mode, c.q.shape[0], c.q.shape[1],
-            c.others.shape[0] - 1, c.planet, scalar(c.G, c.q.dtype),
-            scalar(c.dt, c.q.dtype), eps2, c.r2, s0, s1,
+            c.others.shape[0] - 1, c.planet, *ints, *reals, s0, s1,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
@@ -241,8 +340,9 @@ def graded_step_f64(mode: int, c: Carry, s0: int, s1: int) -> None:
     """Steps s0+1..s1 of a float64 carry on its card through the fp64 graded
     step kernel; adds its launches to `graded_step_f64.launches`."""
     _check(mode, c, s0, s1)
-    if c.q.dtype != torch.float64:
-        raise TypeError(f"graded_step_f64 takes float64, got {c.q.dtype}")
+    if c.q.dtype != torch.float64 or is_dd(c.q):
+        raise TypeError(f"graded_step_f64 takes float64 (B, n, 3), got "
+                        f"{c.q.dtype} {tuple(c.q.shape)}")
     _launch(graded_step_f64, mode, c, s0, s1)
 
 
@@ -255,17 +355,31 @@ def graded_step_f32(mode: int, c: Carry, s0: int, s1: int) -> None:
     _launch(graded_step_f32, mode, c, s0, s1)
 
 
+def graded_step_dd(mode: int, c: Carry, s0: int, s1: int) -> None:
+    """Steps s0+1..s1 of a double-double carry on its card through the
+    double-double graded step kernel (B4'); adds its launches to
+    `graded_step_dd.launches`."""
+    _check(mode, c, s0, s1)
+    if not is_dd(c.q):
+        raise TypeError(f"graded_step_dd takes double-double (B, n, 3, 2) "
+                        f"float64, got {c.q.dtype} {tuple(c.q.shape)}")
+    _launch(graded_step_dd, mode, c, s0, s1)
+
+
 graded_step_f64.launches = 0
 graded_step_f32.launches = 0
+graded_step_dd.launches = 0
 
 
 def graded_chunk(mode: int, c: Carry, s0: int, s1: int) -> None:
     """Advance c from step s0 to s1 (0 <= s0 < s1) in driver `mode` (P12,
-    P3 or P123). CUDA tensors run the graded step kernel of their dtype;
-    CPU tensors run the plain chunk."""
+    P3 or P123). CUDA tensors run the graded step kernel of their
+    representation; CPU tensors run the plain chunk."""
     _check(mode, c, s0, s1)
     if c.q.device.type == "cpu":
         _REF[mode](c, s0, s1)
+    elif is_dd(c.q):
+        graded_step_dd(mode, c, s0, s1)
     elif c.q.dtype == torch.float64:
         graded_step_f64(mode, c, s0, s1)
     else:

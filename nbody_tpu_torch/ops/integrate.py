@@ -6,7 +6,10 @@ nothing is fused and nothing contracts into an FMA.
 
 The force dispatches on the state's dtype: float32 runs kernel B2
 (ops/accel_f32, the rsqrt form), float64 runs kernel B1 (ops/accel_f64, the
-serial-fold binary64 form).
+serial-fold binary64 form, d2^1.5 as `dist3_mode` says). The `_dd` steps
+take a double-double state (ops/ddfloat: float64 tensors with a trailing
+axis of 2) and run kernel B4 (ops/accel_dd), with the update in
+double-double.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import ddfloat as ddf
+from .accel_dd import accel_dd
 from .accel_f32 import accel_f32_self
 from .accel_f64 import accel_f64
 
@@ -26,25 +31,27 @@ def scalar(x: float, dtype: torch.dtype) -> float:
 
 
 def accel(q: torch.Tensor, m_eff: torch.Tensor, *, G: float,
-          eps: float) -> torch.Tensor:
+          eps: float, dist3_mode: str = "dsqrt") -> torch.Tensor:
     """Accelerations of q under effective masses m_eff.
 
     q (B, n, 3) and m_eff (B, n), a scenario batch, or one unbatched scene
-    (n, 3), (n,). float32: kernel B2 with gm = fl32(m_eff * fl32(G));
-    float64: kernel B1 with gm = fl(m_eff * G)."""
+    (n, 3), (n,). float32: kernel B2 with gm = fl32(m_eff * fl32(G)), one
+    form whatever `dist3_mode` says; float64: kernel B1 with gm =
+    fl(m_eff * G)."""
     if q.dtype == torch.float32:
         return accel_f32_self(q, m_eff * scalar(G, q.dtype), eps=eps)
     if q.dim() == 2:
-        return accel_f64(q[None], (m_eff * G)[None], eps=eps)[0]
-    return accel_f64(q, m_eff * G, eps=eps)
+        return accel_f64(q[None], (m_eff * G)[None], eps=eps,
+                         dist3_mode=dist3_mode)[0]
+    return accel_f64(q, m_eff * G, eps=eps, dist3_mode=dist3_mode)
 
 
 def symplectic_euler_step(q: torch.Tensor, v: torch.Tensor,
                           m_eff: torch.Tensor, *, G: float, eps: float,
-                          dt: float):
+                          dt: float, dist3_mode: str = "dsqrt"):
     """One step of q, v under effective masses m_eff (shapes as `accel`).
     Returns the new (q, v)."""
-    a = accel(q, m_eff, G=G, eps=eps)
+    a = accel(q, m_eff, G=G, eps=eps, dist3_mode=dist3_mode)
     dt = scalar(dt, q.dtype)
     v = v + a * dt
     q = q + v * dt
@@ -53,7 +60,7 @@ def symplectic_euler_step(q: torch.Tensor, v: torch.Tensor,
 
 def kdk_leapfrog_step(q: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
                       m_eff: torch.Tensor, *, G: float, eps: float,
-                      dt: float):
+                      dt: float, dist3_mode: str = "dsqrt"):
     """Kick-drift-kick leapfrog (velocity Verlet), 2nd order symplectic.
 
     State is (q, v, a) with `a` the acceleration at q; the end-of-step
@@ -62,6 +69,43 @@ def kdk_leapfrog_step(q: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
     kick = scalar(0.5 * dt, q.dtype)
     vh = v + a * kick
     q = q + vh * scalar(dt, q.dtype)
-    a = accel(q, m_eff, G=G, eps=eps)
+    a = accel(q, m_eff, G=G, eps=eps, dist3_mode=dist3_mode)
     v = vh + a * kick
     return q, v, a
+
+
+def accel_dd_state(q: torch.Tensor, m_eff: torch.Tensor, *, G: float,
+                   eps: float) -> torch.Tensor:
+    """Double-double accelerations of q (B, n, 3, 2) under effective masses
+    m_eff (B, n, 2), or of one unbatched scene (n, 3, 2), (n, 2): kernel B4
+    with gm = m_eff * G in double-double (G a binary64 value)."""
+    gm = ddf.join(ddf.mul(ddf.split(m_eff), ddf.const(G)))
+    if q.dim() == 3:
+        return accel_dd(q[None], gm[None], eps=eps)[0]
+    return accel_dd(q, gm, eps=eps)
+
+
+def _axpy_dd(x: torch.Tensor, a: torch.Tensor, h: float) -> torch.Tensor:
+    """x + a*h in double-double, h a binary64 value."""
+    return ddf.join(ddf.add(ddf.split(x),
+                            ddf.mul(ddf.split(a), ddf.const(h))))
+
+
+def symplectic_euler_step_dd(q: torch.Tensor, v: torch.Tensor,
+                             m_eff: torch.Tensor, *, G: float, eps: float,
+                             dt: float):
+    """`symplectic_euler_step` in double-double (shapes as
+    `accel_dd_state`): v += a*dt, q += v*dt."""
+    a = accel_dd_state(q, m_eff, G=G, eps=eps)
+    v = _axpy_dd(v, a, dt)
+    return _axpy_dd(q, v, dt), v
+
+
+def kdk_leapfrog_step_dd(q: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
+                         m_eff: torch.Tensor, *, G: float, eps: float,
+                         dt: float):
+    """`kdk_leapfrog_step` in double-double."""
+    vh = _axpy_dd(v, a, 0.5 * dt)
+    q = _axpy_dd(q, vh, dt)
+    a = accel_dd_state(q, m_eff, G=G, eps=eps)
+    return q, _axpy_dd(vh, a, 0.5 * dt), a

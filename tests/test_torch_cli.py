@@ -109,11 +109,25 @@ def test_cli_f32_writes_the_f32_answers(tmp_path, capsys):
     assert stats["accel_f32_launches"] == stats["accel_f64_launches"] == 0
 
 
-def test_cli_tf3_is_not_ported(tmp_path):
-    _, inp = _scene_file(tmp_path, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main([inp, str(tmp_path / "o.out"), "--device", "cpu",
-              "--precision", "tf3", "--n-steps", "5"])
+def test_cli_tf3_writes_the_tf3_answers(tmp_path, capsys):
+    from nbody_tpu_torch import SimConfig, solve_scene
+    from nbody_tpu_torch.io import format_output
+
+    scene, inp = _scene_file(tmp_path, 79)
+    out = str(tmp_path / "o.out")
+    assert main([inp, out, "--device", "cpu", "--precision", "tf3",
+                 "--n-steps", "60", "--stats"]) == 0
+    want = solve_scene(Scene(n=scene.n, planet=scene.planet,
+                             asteroid=scene.asteroid, q=scene.q, v=scene.v,
+                             m=scene.m, types=scene.types,
+                             device_idx=scene.device_idx),
+                       SimConfig(n_steps=60), precision="tf3", device="cpu")
+    with open(out) as f:
+        assert f.read() == format_output(*want.as_tuple())
+    stats = json.loads(capsys.readouterr().err.strip().split("\n")[-1])
+    assert stats["precision"] == "tf3"
+    assert stats["accel_dd_launches"] == stats["graded_step_dd_launches"] \
+        == 0
 
 
 def test_cli_cuda_without_card_fails(tmp_path):

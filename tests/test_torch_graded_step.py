@@ -9,7 +9,8 @@ within test_torch_precisions' 1e-3 of the JAX package's float32 solve. The
 step tables must equal the host floats the drivers read before they moved
 to the device, and the wrappers must refuse what the kernels do not take.
 
-On a card, each graded step kernel (fp64 and fp32) is held bitwise, on
+On a card, each graded step kernel (fp64 in both dist3 forms, fp32 and
+double-double) is held bitwise, on
 every carry, against the plain chunk run on the card: P1+P2 at B=2 and
 B=1 (n=1024, 300 steps), Problem 3 with rows that arrive mid-chunk, and the
 fused driver at n=20 over two chunks. The JAX package is imported inside
@@ -288,12 +289,13 @@ CARD_CASES = ["P1+P2", "P1+P2 after the P2 exit", "P3 mid-chunk arrivals",
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CARD_CASES)
-@pytest.mark.parametrize("precision", ["f64", "f32"])
+@pytest.mark.parametrize("precision", ["f64", "f32", "tf3", "f64-sqrt3"])
 def test_step_kernel_bitwise_equal_to_plain_chunk_on_card(cuda, precision,
                                                           case):
     import chip_smoke
 
-    mk = chip_smoke.graded_makers(precision)
+    precision, _, dist3 = precision.partition("-")
+    mk = chip_smoke.graded_makers(precision, dist3 or "dsqrt")
     mode, make, chunks = {
         "P1+P2": (gs.P12, mk["p12"], [(0, 300)]),
         "P1+P2 after the P2 exit": (gs.P12, lambda d: mk["p12"](d, 1),
@@ -301,7 +303,8 @@ def test_step_kernel_bitwise_equal_to_plain_chunk_on_card(cuda, precision,
         "P3 mid-chunk arrivals": (gs.P3, mk["p3"], [(0, 70), (70, 200)]),
         "fused n=20": (gs.P123, mk["p123"], [(0, 150), (150, 300)]),
     }[case]
-    kernel = gs.graded_step_f64 if precision == "f64" else gs.graded_step_f32
+    kernel = {"f64": gs.graded_step_f64, "f32": gs.graded_step_f32,
+              "tf3": gs.graded_step_dd}[precision]
     before = kernel.launches
     rec = chip_smoke.check_step(case, mode, make, chunks)
     assert rec["bitwise_equal"]
@@ -311,13 +314,21 @@ def test_step_kernel_bitwise_equal_to_plain_chunk_on_card(cuda, precision,
 @pytest.mark.cuda
 def test_launchers_refuse_bad_arguments_on_card(cuda):
     """The C entry points refuse an empty chunk, B = 0, a bad mode and
-    n = 0 with cudaErrorInvalidValue (1) before launching."""
+    n = 0 with cudaErrorInvalidValue (1) before launching; the fp64 ones
+    also a dist3 form other than dsqrt (1) and sqrt3 (2)."""
     lib = _build.load()
     stream = torch.cuda.current_stream().cuda_stream
-    for name in ("graded_chunk_f64_launch", "graded_chunk_f32_launch"):
+    for name, ints, reals in (("graded_chunk_f64_launch", (1,), 4),
+                              ("graded_chunk_f32_launch", (), 4),
+                              ("graded_chunk_dd_launch", (), 8)):
         fn = getattr(lib, name)
         for mode, B, n, s0, s1 in ((0, 1, 4, 5, 5), (0, 0, 4, 0, 1),
                                    (3, 1, 4, 0, 1), (0, 1, 0, 0, 1)):
-            assert fn(*[None] * 16, mode, B, n, 0, 0, 1.0, 1.0, 1.0, 1.0,
-                      s0, s1, stream) == 1
+            assert fn(*[None] * 16, mode, B, n, 0, 0, *ints,
+                      *[1.0] * reals, s0, s1, stream) == 1
+    assert lib.graded_chunk_f64_launch(*[None] * 16, 0, 1, 4, 0, 0, 0,
+                                       *[1.0] * 4, 0, 1, stream) == 1
+    z = torch.zeros((1, 4, 3), dtype=torch.float64, device="cuda")
+    assert lib.accel_f64_launch(z.data_ptr(), z.data_ptr(), z.data_ptr(), 1,
+                                4, 1.0, 3, stream) == 1
     assert lib.fold_floor_f64_launch(None, None, None, 2048, 1, stream) == 1

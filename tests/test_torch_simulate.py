@@ -25,6 +25,7 @@ from nbody_tpu_torch import Scene, SimConfig, SimState, simulate
 from nbody_tpu_torch.models.plummer import plummer_scene
 from nbody_tpu_torch.ops import integrate
 from nbody_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from nbody_tpu_torch.utils.rescale import compute_rescale
 from test_fuzz_differential import _fuzz_scene
 
 CFG = SimConfig()
@@ -175,14 +176,12 @@ def test_force_goes_through_the_kernel_wrappers(monkeypatch, precision,
 
 
 @pytest.mark.parametrize("kw,err", [
-    ({"precision": "tf3"}, NotImplementedError),
-    ({"precision": "ddp"}, NotImplementedError),
-    ({"precision": "dd+"}, NotImplementedError),
-    ({"precision": "dd"}, NotImplementedError),
     ({"mesh": object()}, NotImplementedError),
     ({"tile": 64}, NotImplementedError),
     ({"precision": "e64", "compensated": True}, ValueError),
     ({"precision": "tf3", "compensated": True}, ValueError),
+    ({"precision": "dd", "compensated": True}, ValueError),
+    ({"precision": "ddp", "compensated": True}, ValueError),
     ({"precision": "bf16"}, ValueError),
     ({"integrator": "rk4"}, ValueError),
     ({"chunk": 0}, ValueError),
@@ -190,6 +189,34 @@ def test_force_goes_through_the_kernel_wrappers(monkeypatch, precision,
 def test_rejected_options(kw, err):
     with pytest.raises(err):
         simulate(_port(_fuzz_scene(0)), CFG, n_steps=2, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+@pytest.mark.parametrize("scene", ["fuzz0", "plummer64"])
+def test_dd_matches_jax(scene, integrator):
+    """'dd' runs binary64 (kernel B1), where the JAX package runs its
+    double-double on the rescaled scene: within 1e-9, the graded 'dd'
+    tolerance (tests/test_torch_precisions.py); measured 4.4e-16 here."""
+    got, want = _both(SCENES[scene](), n_steps=STEPS, precision="dd",
+                      integrator=integrator, chunk=16)
+    np.testing.assert_allclose(got.q, want.q, rtol=1e-9)
+    np.testing.assert_allclose(got.v, want.v, rtol=1e-9)
+
+
+def test_dd_is_the_binary64_path_on_the_rescaled_scene():
+    """'dd' is 'f64' on the raw scene: the JAX package's power-of-two
+    rescale is exact in binary64, so running on the rescaled scene and
+    scaling back gives the same bits."""
+    scene = _port(_fuzz_scene(2))
+    a = simulate(scene, CFG, n_steps=20, precision="dd", device="cpu")
+    b = simulate(scene, CFG, n_steps=20, precision="f64", device="cpu")
+    np.testing.assert_array_equal(a.q, b.q)
+    np.testing.assert_array_equal(a.v, b.v)
+    rs = compute_rescale(scene, eps=CFG.eps)
+    c = simulate(rs.apply_scene(scene), rs.apply_cfg(CFG), n_steps=20,
+                 precision="f64", device="cpu")
+    np.testing.assert_array_equal(c.q / rs.length_scale, b.q)
+    np.testing.assert_array_equal(c.v / rs.length_scale, b.v)
 
 
 def test_f64_rejects_other_dist3_forms():

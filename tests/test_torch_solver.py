@@ -155,11 +155,16 @@ def test_scene_without_devices(seed):
         solve_exact(scene, JCFG, dist3_mode="dsqrt"))
 
 
-@pytest.mark.parametrize("precision", ["tf3"])
-def test_unported_precisions_raise(precision):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_scene(_port(_fuzz_scene(0)), CFG, precision=precision,
-                    device="cpu")
+@pytest.mark.parametrize("seed", [0, 79])
+def test_tf3_answers_as_binary64_does_here(seed):
+    """'tf3' (double-double, beyond binary64) answers; on these scenes its
+    discrete answers are binary64's and its min distance within 1e-9
+    (tests/test_torch_tf3.py holds it to JAX 'tf3')."""
+    scene = _port(_fuzz_scene(seed))
+    got = solve_scene(scene, CFG, precision="tf3", device="cpu")
+    want = solve_scene(scene, CFG, device="cpu")
+    assert got.as_tuple()[1:] == want.as_tuple()[1:]
+    assert got.min_dist == pytest.approx(want.min_dist, rel=1e-9)
 
 
 def test_bad_precision_dist3_and_strategy_raise():
