@@ -19,9 +19,10 @@
 // equal to its plain version `accel_dd_ref`.
 //
 // Layout: q (B, n, 3) and gm (B, n) double-double, a (B, n, 3), each value
-// two contiguous doubles (hi, lo). The grid is (ceil(n / DD_R), B): a block
-// owns DD_R rows of one scenario row; dd_force.cuh has the block's work,
-// its design and its bound (the fp64 pipe, about 330 instructions a pair).
+// two contiguous doubles (hi, lo). The grid is (ceil(n / 4), B): a block
+// owns the 4 rows of one scenario row of the geometry DdNarrow;
+// dd_force.cuh has the block's work, its design and its bound (the fp64
+// pipe, 333 instructions a pair).
 
 #include <cuda_runtime.h>
 
@@ -30,19 +31,25 @@
 namespace {
 
 using nbody::dd;
+using Geo = nbody::DdNarrow;
 
-__global__ void __launch_bounds__(nbody::DD_THREADS)
+__global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
 accel_dd_kernel(const dd* __restrict__ q, const dd* __restrict__ gm,
                 dd* __restrict__ a, int n, dd eps2) {
-    __shared__ nbody::DdRowsSmem sm;
-    const int b = blockIdx.y;
-    const dd* qb = q + static_cast<size_t>(b) * n * 3;
-    const dd* gb = gm + static_cast<size_t>(b) * n;
-    dd acc;
+    __shared__ Geo::Smem sm;
+    const int b = blockIdx.y, i0 = blockIdx.x * Geo::R;
+    const size_t row = static_cast<size_t>(b) * n;
+    const dd* qb = q + row * 3;
+    nbody::dd_rows_qi<Geo>(qb, n, i0, sm);
+    if (threadIdx.x < Geo::NC) {
+        nbody::dd_rows_terms<Geo>(qb, n, eps2, nbody::DdGmTable{gm + row},
+                                  sm);
+        return;
+    }
     size_t x;
-    if (nbody::dd_rows_accel(qb, n, blockIdx.x * nbody::DD_R, eps2,
-                             [gb](int j) { return gb[j]; }, sm, acc, x))
-        a[static_cast<size_t>(b) * n * 3 + x] = acc;
+    const bool folds = nbody::dd_fold_lane<Geo>(i0, n, x);
+    const dd acc = nbody::dd_rows_fold<Geo>(n, folds, sm);
+    if (folds) a[row * 3 + x] = acc;
 }
 
 }  // namespace
@@ -55,8 +62,8 @@ extern "C" int accel_dd_launch(const double* q, const double* gm, double* a,
                                void* stream) {
     if (B <= 0 || B > 65535 || n <= 0)  // B rides gridDim.y
         return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((n + nbody::DD_R - 1) / nbody::DD_R, B);
-    accel_dd_kernel<<<grid, nbody::DD_THREADS, 0,
+    const dim3 grid((n + Geo::R - 1) / Geo::R, B);
+    accel_dd_kernel<<<grid, Geo::THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const dd*>(q), reinterpret_cast<const dd*>(gm),
         reinterpret_cast<dd*>(a), n, dd{eps2_hi, eps2_lo});

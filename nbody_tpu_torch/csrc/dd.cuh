@@ -1,6 +1,6 @@
 // Double-double binary64 arithmetic for the kernels of precision 'tf3'
 // (accel_dd.cu, kernel B4; graded_step_dd.cu, the graded step B4'), and
-// kernel B4's pair term and fold.
+// their pair term and fold.
 //
 // A value is the unevaluated sum hi + lo of two doubles, |lo| <= ulp(hi)/2:
 // about 106 bits, with binary64's range, so the raw graded scenes need no
@@ -96,23 +96,40 @@ __device__ __forceinline__ dd rn_add(dd a, dd b) { return dd_add(a, b); }
 __device__ __forceinline__ dd rn_sub(dd a, dd b) { return dd_sub(a, b); }
 __device__ __forceinline__ dd rn_mul(dd a, dd b) { return dd_mul(a, b); }
 
-// Kernel B4's pair term, the physics of kernel B1's in double-double:
+// The pair terms of K rows i against one source j (kernels B4 and B4'),
+// the physics of kernel B1's in double-double:
 //   dx = q_j - q_i;  d2 = ((dx*dx + dy*dy) + dz*dz) + eps2
 //   w = gm_j / (d2 * sqrt(d2));  t = w * dx
 // The j == i term is 0 (dx is exactly 0) and is folded like any other.
-__device__ __forceinline__ void dd_pair_term(
-        dd xj, dd yj, dd zj, dd gmj, dd xi, dd yi, dd zi, dd eps2, dd& tx,
-        dd& ty, dd& tz) {
-    const dd dx = dd_sub(xj, xi);
-    const dd dy = dd_sub(yj, yi);
-    const dd dz = dd_sub(zj, zi);
-    const dd d2 = dd_add(
-        dd_add(dd_add(dd_mul(dx, dx), dd_mul(dy, dy)), dd_mul(dz, dz)),
-        eps2);
-    const dd w = dd_div(gmj, dd_mul(d2, dd_sqrt(d2)));
-    tx = dd_mul(w, dx);
-    ty = dd_mul(w, dy);
-    tz = dd_mul(w, dz);
+// Each step is taken for all K rows before the next, so that K independent
+// chains are in flight; every row's ops are the same, in the same order.
+template <int K>
+__device__ __forceinline__ void dd_pair_terms(
+        dd xj, dd yj, dd zj, dd gmj, const dd (&xi)[K], const dd (&yi)[K],
+        const dd (&zi)[K], dd eps2, dd (&t)[K][3]) {
+    dd dx[K], dy[K], dz[K], d2[K], w[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        dx[k] = dd_sub(xj, xi[k]);
+        dy[k] = dd_sub(yj, yi[k]);
+        dz[k] = dd_sub(zj, zi[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+        d2[k] = dd_add(dd_add(dd_add(dd_mul(dx[k], dx[k]),
+                                     dd_mul(dy[k], dy[k])),
+                              dd_mul(dz[k], dz[k])),
+                       eps2);
+#pragma unroll
+    for (int k = 0; k < K; ++k) w[k] = dd_mul(d2[k], dd_sqrt(d2[k]));
+#pragma unroll
+    for (int k = 0; k < K; ++k) w[k] = dd_div(gmj, w[k]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        t[k][0] = dd_mul(w[k], dx[k]);
+        t[k][1] = dd_mul(w[k], dy[k]);
+        t[k][2] = dd_mul(w[k], dz[k]);
+    }
 }
 
 // The fold over ascending j (ops/ddfloat.fold_add): the his summed with

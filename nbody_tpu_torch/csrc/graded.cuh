@@ -208,18 +208,19 @@ inline bool graded_args_ok(int mode, int B, int n, int D, int s0, int s1) {
 
 // Steps s0 + 1 .. s1 from the state in (q0, v0); the result lies in
 // (q0, v0) if s1 - s0 is even, else in (q1, v1). No host synchronisation.
-// Returns the first launch error, or 0.
+// `smem`: the step kernel's dynamic shared memory in bytes. Returns the
+// first launch error, or 0.
 template <typename T, typename Step, typename Check>
 int graded_chunk(Step step, Check check, dim3 grid,
                  int threads, int check_threads, const GradedArgs<T>& a,
                  T* q0, T* v0, T* q1, T* v1, int s0, int s1,
-                 cudaStream_t stream) {
+                 cudaStream_t stream, size_t smem = 0) {
     T* q[2] = {q0, q1};
     T* v[2] = {v0, v1};
     for (int t = s0 + 1; t <= s1; ++t) {
         const int in = (t - s0 - 1) & 1;
-        step<<<grid, threads, 0, stream>>>(a, q[in], v[in], q[in ^ 1],
-                                           v[in ^ 1], t, t > s0 + 1);
+        step<<<grid, threads, smem, stream>>>(a, q[in], v[in], q[in ^ 1],
+                                              v[in ^ 1], t, t > s0 + 1);
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return static_cast<int>(err);
     }

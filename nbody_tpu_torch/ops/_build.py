@@ -158,6 +158,10 @@ def load() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int,                      # s0, s1
             ctypes.c_void_p,                                 # cudaStream_t
         ]
+    lib.graded_step_dd_info.restype = ctypes.c_int
+    lib.graded_step_dd_info.argtypes = [
+        ctypes.c_int, ctypes.c_void_p,                       # n, int out[10]
+    ]
     lib.fold_floor_f64_launch.restype = ctypes.c_int
     lib.fold_floor_f64_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # x, out, ns

@@ -168,7 +168,8 @@ def test_cpu_runs_the_plain_version_and_counts_no_launch():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n", [(2, 1024), (1, 37), (3, 200)])
+@pytest.mark.parametrize("B,n", [(2, 1024), (1, 37), (3, 200), (1, 1),
+                                 (1, 5), (2, 63), (1, 65)])
 def test_kernel_bitwise_equal_to_plain_version_on_card(cuda, B, n):
     rng = np.random.RandomState(n)
     q = ddf.from_f64(rng.randn(B, n, 3) * 1e10)

@@ -13,7 +13,10 @@ On a card, each graded step kernel (fp64 in both dist3 forms, fp32 and
 double-double) is held bitwise, on
 every carry, against the plain chunk run on the card: P1+P2 at B=2 and
 B=1 (n=1024, 300 steps), Problem 3 with rows that arrive mid-chunk, and the
-fused driver at n=20 over two chunks. The JAX package is imported inside
+fused driver at n=20 over two chunks; the double-double kernel (B4') also
+at n one off its block's rows and its tile in each of its two geometries,
+where the geometry changes, and at 1000, in every driver with one, two and
+five rows. The JAX package is imported inside
 the tests that use it, so the card's tests run where no JAX is installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_graded_step.py
@@ -309,6 +312,26 @@ def test_step_kernel_bitwise_equal_to_plain_chunk_on_card(cuda, precision,
     rec = chip_smoke.check_step(case, mode, make, chunks)
     assert rec["bitwise_equal"]
     assert kernel.launches - before == sum(s1 - s0 + 1 for s0, s1 in chunks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edges", ["narrow", "wide", "switch"])
+def test_dd_step_kernel_bitwise_at_layout_edges_on_card(cuda, edges):
+    """B4' in each of its two geometries at n one short of and one past a
+    multiple of its rows a block and of its tile, and at the n where the
+    geometry changes and 1000: P1+P2 at B=2 and B=1, Problem 3 and the
+    fused driver with five rows each, bitwise equal to the plain dd
+    chunk."""
+    import chip_smoke
+
+    before, launches = gs.graded_step_dd.launches, 0
+    for n in chip_smoke.dd_edge_sizes()[edges]:
+        for label, mode, make, chunks in chip_smoke.dd_edge_cases(n):
+            rec = chip_smoke.check_step(label, mode, make, chunks)
+            assert rec["bitwise_equal"], rec
+            assert rec["n"] == n
+            launches += sum(s1 - s0 + 1 for s0, s1 in chunks)
+    assert gs.graded_step_dd.launches - before == launches
 
 
 @pytest.mark.cuda
