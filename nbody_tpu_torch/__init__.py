@@ -17,8 +17,10 @@ twin with the same op order, which the tests hold against the JAX package.
 all-pairs rsqrt force, in 'f64'/'e64'/'dd' kernel B1, and beyond binary64
 ('tf3', 'ddp', 'dd+') kernel B4 (csrc/accel_dd.cu) in double-double. The
 graded solve's 'tf3' runs the double-double graded step kernel
-(csrc/graded_step_dd.cu), and every driver can checkpoint and resume. This
-package imports neither `jax` nor `nbody_tpu`.
+(csrc/graded_step_dd.cu), and every driver can checkpoint and resume.
+`parallel/` runs both over a ('scen', 'body') mesh of torch.distributed
+ranks (NCCL on cards, gloo on the CPU), and `graft_entry` holds the entry
+points. This package imports neither `jax` nor `nbody_tpu`.
 """
 
 from .config import SimConfig

@@ -1,12 +1,19 @@
 """Command-line entry point: `python -m nbody_tpu_torch <in> <out>`.
 
 The reference binary's contract (`./hw5 <in> <out>`, hw5.cu:532-535), plus
-runtime flags for what the reference fixes at compile time.
+runtime flags for what the reference fixes at compile time. With `--mesh`
+the solve runs over a mesh of ranks: alone as one rank, or under torchrun,
+
+    torchrun --nproc-per-node 4 -m nbody_tpu_torch in out \
+        --mesh scen=2,body=2 --device cpu
+
+and rank 0 alone writes the `.out` and the `--stats` line.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -53,7 +60,73 @@ def build_parser() -> argparse.ArgumentParser:
                         "PATH.p3.npz and PATH.p3progress.json beside it); "
                         "a resumed run's answers are bitwise those of one "
                         "that never stopped")
+    p.add_argument("--mesh", default=None, metavar="scen=S,body=B",
+                   help="solve over a ('scen','body') mesh of "
+                        "torch.distributed ranks, one device each (NCCL on "
+                        "cuda, gloo on cpu): the multi-device analog of the "
+                        "reference's 2-GPU distribution (hw5.cu:532-615). "
+                        "S*B must be the number of ranks (1 when run "
+                        "alone; torchrun --nproc-per-node K); one size may "
+                        "be -1 (inferred). Binary64 and tf3 answers are "
+                        "bitwise the one-device ones. Example: --mesh "
+                        "scen=2,body=-1")
+    p.add_argument("--tile", type=int, default=None,
+                   help="the f32 mesh's force tile in bodies (default 128, "
+                        "the fp32 kernel's tile, where the answers are "
+                        "bitwise the one-device f32 ones); one tile gives "
+                        "bitwise the same answers on every mesh shape. "
+                        "Binary64 and tf3 split rows and ignore it. Needs "
+                        "--mesh")
     return p
+
+
+def read_input_header_n(path: str) -> int:
+    """The body count of a testcase header (cheap CLI pre-checks), read as
+    io.read_input tokenizes it."""
+    from .io import SceneFormatError
+    with open(path) as f:
+        tokens = f.read().split()
+    if not tokens:
+        raise SceneFormatError(f"{path}: missing header")
+    return int(tokens[0])
+
+
+def check_mesh_args(args, world: int) -> dict | None:
+    """The mesh's {axis: size} of parsed CLI args, after the refusals
+    (SystemExit): --mesh with 'exact', a --tile below 1 or without
+    --mesh, a mesh of another size than the `world` ranks, and a float32
+    tile that would pad the scene to more than twice what the default
+    tile pads it to."""
+    if args.tile is not None and args.tile < 1:
+        raise SystemExit(f"--tile must be a positive row count, got "
+                         f"{args.tile}")
+    if args.mesh is None:
+        if args.tile is not None:
+            raise SystemExit("--tile sets the mesh's f32 force tile; give "
+                             "--mesh too")
+        return None
+    if args.precision == "exact":
+        raise SystemExit("--mesh does not apply to the native serial core "
+                         "(precision 'exact')")
+    from .parallel.mesh import mesh_sizes, parse_mesh_spec
+    try:
+        axes = parse_mesh_spec(args.mesh)
+        _, body = mesh_sizes(axes, world)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if args.tile is not None and args.precision == "f32":
+        from .parallel.sharded import TILE
+        n = read_input_header_n(args.input)
+
+        def padded(tile: int) -> int:
+            return -(-n // (body * tile)) * body * tile
+        if padded(args.tile) > 2 * padded(TILE):
+            raise SystemExit(
+                f"--tile {args.tile} would pad the scene from {n} to "
+                f"{padded(args.tile)} bodies on a body={body} mesh (each "
+                f"rank's rows round up to a tile multiple); the default "
+                f"tile {TILE} pads it to {padded(TILE)}")
+    return axes
 
 
 def main(argv=None) -> int:
@@ -62,10 +135,39 @@ def main(argv=None) -> int:
     # after parsing, so `--help` stays instant
     import dataclasses
 
-    import torch
+    import torch.distributed as dist
 
     from .config import SimConfig
     from .device import resolve_device
+
+    cfg = SimConfig()
+    if args.n_steps is not None:
+        cfg = dataclasses.replace(cfg, n_steps=args.n_steps)
+    if args.dist3_mode is not None:
+        cfg = dataclasses.replace(cfg, dist3_mode=args.dist3_mode)
+    mesh = None
+    if args.mesh is not None or args.tile is not None:
+        from .parallel import mesh as pm
+        world = dist.get_world_size() if dist.is_initialized() else \
+            int(os.environ.get("WORLD_SIZE", "1"))
+        axes = check_mesh_args(args, world)
+        opened = not dist.is_initialized()
+        mesh = pm.make_mesh(axes, device=args.device)
+        device = pm.mesh_device(mesh)
+        try:
+            return _solve(args, cfg, device, mesh)
+        finally:
+            if opened:
+                pm.close()
+    device = None if args.precision == "exact" else resolve_device(args.device)
+    return _solve(args, cfg, device, None)
+
+
+def _solve(args, cfg, device, mesh) -> int:
+    """Read, solve and write (rank 0 alone on a mesh)."""
+    import torch
+    import torch.distributed as dist
+
     from .engine import solve_scene
     from .io import read_input, write_output
     from .ops.accel_dd import accel_dd
@@ -74,13 +176,6 @@ def main(argv=None) -> int:
     from .ops.graded_step import graded_step_dd, graded_step_f32, \
         graded_step_f64
     from .utils.profiling import PhaseTimers, pair_interactions
-
-    cfg = SimConfig()
-    if args.n_steps is not None:
-        cfg = dataclasses.replace(cfg, n_steps=args.n_steps)
-    if args.dist3_mode is not None:
-        cfg = dataclasses.replace(cfg, dist3_mode=args.dist3_mode)
-    device = None if args.precision == "exact" else resolve_device(args.device)
 
     timers = PhaseTimers(device)
     kernels = (accel_f64, accel_f32, accel_dd, graded_step_f64,
@@ -91,17 +186,24 @@ def main(argv=None) -> int:
         scene = read_input(args.input)
     ans = solve_scene(scene, cfg, precision=args.precision,
                       device=args.device, timers=timers,
-                      checkpoint_path=args.checkpoint)
-    with timers.phase("write_output"):
-        write_output(args.output, *ans.as_tuple())
+                      checkpoint_path=args.checkpoint, mesh=mesh,
+                      tile=args.tile)
+    rank0 = mesh is None or dist.get_rank() == 0
+    if rank0:
+        with timers.phase("write_output"):
+            write_output(args.output, *ans.as_tuple())
     elapsed = time.perf_counter() - t0
 
-    if args.stats:
+    if args.stats and rank0:
+        mesh_stats = {} if mesh is None else {
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+            "tile": args.tile}
         n_sims = 2 + (scene.device_cnt if ans.hit_time_step != -2 else 0)
         pairs = pair_interactions(scene.n, cfg.n_steps, n_sims)
         timers.report(stream=sys.stderr, **{
             "n": scene.n, "device_cnt": scene.device_cnt,
             "n_steps": cfg.n_steps, "precision": args.precision,
+            **mesh_stats,
             "dist3_mode": cfg.resolved_dist3(args.precision),
             "device": (torch.cuda.get_device_name(device)
                        if device is not None and device.type == "cuda"

@@ -18,11 +18,14 @@
 // sequence of its twin in ops/ddfloat.py (dd.cuh), so the kernel is bitwise
 // equal to its plain version `accel_dd_ref`.
 //
-// Layout: q (B, n, 3) and gm (B, n) double-double, a (B, n, 3), each value
-// two contiguous doubles (hi, lo). The grid is (ceil(n / 4), B): a block
-// owns the 4 rows of one scenario row of the geometry DdNarrow;
-// dd_force.cuh has the block's work, its design and its bound (the fp64
-// pipe, 333 instructions a pair).
+// Layout: rows qi (B, ni, 3) against sources qj (B, nj, 3) with gm (B, nj),
+// double-double, a (B, ni, 3), each value two contiguous doubles (hi, lo);
+// the self form is qi = qj. The grid is (ceil(ni / 4), B): a block owns
+// the 4 rows of one scenario row of the geometry DdNarrow; dd_force.cuh
+// has the block's work, its design and its bound (the fp64 pipe, 333
+// instructions a pair). A row's fold reads only its own position and the
+// sources, so the row blocks of a mesh, each launched on its own, give the
+// self form's bits.
 
 #include <cuda_runtime.h>
 
@@ -34,38 +37,42 @@ using nbody::dd;
 using Geo = nbody::DdNarrow;
 
 __global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
-accel_dd_kernel(const dd* __restrict__ q, const dd* __restrict__ gm,
-                dd* __restrict__ a, int n, dd eps2) {
+accel_dd_kernel(const dd* __restrict__ qi, const dd* __restrict__ qj,
+                const dd* __restrict__ gm, dd* __restrict__ a, int ni, int nj,
+                dd eps2) {
     __shared__ Geo::Smem sm;
     const int b = blockIdx.y, i0 = blockIdx.x * Geo::R;
-    const size_t row = static_cast<size_t>(b) * n;
-    const dd* qb = q + row * 3;
-    nbody::dd_rows_qi<Geo>(qb, n, i0, sm);
+    const size_t rows = static_cast<size_t>(b) * ni;
+    const size_t srcs = static_cast<size_t>(b) * nj;
+    nbody::dd_rows_qi<Geo>(qi + rows * 3, ni, i0, sm);
     if (threadIdx.x < Geo::NC) {
-        nbody::dd_rows_terms<Geo>(qb, n, eps2, nbody::DdGmTable{gm + row},
-                                  sm);
+        nbody::dd_rows_terms<Geo>(qj + srcs * 3, nj, eps2,
+                                  nbody::DdGmTable{gm + srcs}, sm);
         return;
     }
     size_t x;
-    const bool folds = nbody::dd_fold_lane<Geo>(i0, n, x);
-    const dd acc = nbody::dd_rows_fold<Geo>(n, folds, sm);
-    if (folds) a[row * 3 + x] = acc;
+    const bool folds = nbody::dd_fold_lane<Geo>(i0, ni, x);
+    const dd acc = nbody::dd_rows_fold<Geo>(nj, folds, sm);
+    if (folds) a[rows * 3 + x] = acc;
 }
 
 }  // namespace
 
-// a (B, n, 3) from q (B, n, 3) and gm (B, n), all double-double as pairs
-// of doubles; eps2 = eps2_hi + eps2_lo. Returns the launch error, or
-// cudaErrorInvalidValue without launching.
-extern "C" int accel_dd_launch(const double* q, const double* gm, double* a,
-                               int B, int n, double eps2_hi, double eps2_lo,
+// a (B, ni, 3) of rows qi (B, ni, 3) from sources qj (B, nj, 3) under gm
+// (B, nj), all double-double as pairs of doubles; eps2 = eps2_hi +
+// eps2_lo. Returns the launch error, or cudaErrorInvalidValue without
+// launching.
+extern "C" int accel_dd_launch(const double* qi, const double* qj,
+                               const double* gm, double* a, int B, int ni,
+                               int nj, double eps2_hi, double eps2_lo,
                                void* stream) {
-    if (B <= 0 || B > 65535 || n <= 0)  // B rides gridDim.y
+    if (B <= 0 || B > 65535 || ni <= 0 || nj <= 0)  // B rides gridDim.y
         return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((n + Geo::R - 1) / Geo::R, B);
+    const dim3 grid((ni + Geo::R - 1) / Geo::R, B);
     accel_dd_kernel<<<grid, Geo::THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const dd*>(q), reinterpret_cast<const dd*>(gm),
-        reinterpret_cast<dd*>(a), n, dd{eps2_hi, eps2_lo});
+        reinterpret_cast<const dd*>(qi), reinterpret_cast<const dd*>(qj),
+        reinterpret_cast<const dd*>(gm), reinterpret_cast<dd*>(a), ni, nj,
+        dd{eps2_hi, eps2_lo});
     return static_cast<int>(cudaGetLastError());
 }

@@ -18,14 +18,19 @@
 // adding +-0 to the accumulator, which starts at +0 and never becomes -0
 // under round-to-nearest, changes nothing.
 //
-// Layout: q is (B, n, 3), gm (B, n) = fl(G * m_eff), a (B, n, 3), all
-// contiguous float64. The grid is (ceil(n / R), B): a block owns R rows of
-// one scenario b, and scenarios never mix. For each tile of TJ columns, in
+// Layout: rows qi (B, ni, 3) against sources qj (B, nj, 3) with gmj (B, nj)
+// = fl(G * m_eff), a (B, ni, 3), all contiguous float64. The self form is
+// qi = qj. The grid is (ceil(ni / R), B): a block owns R rows of one
+// scenario b, and scenarios never mix. For each tile of TJ sources, in
 // ascending order, the block stages q_j and gm_j in shared memory, all
 // threads compute the R x TJ pair terms in parallel into shared memory, and
 // then 3R threads (one per row and component) fold their row's TJ terms
 // serially into a register. This is the split the TPU kernel's sub_j stacks
-// make. A ragged last tile is masked in the fold, so any n works unpadded.
+// make. A ragged last tile is masked in the fold, so any ni and nj work
+// unpadded. A row's fold reads only its own position and the sources, so
+// its bits do not depend on which rows share the launch: the row blocks of
+// a mesh (parallel/solver_sharded.py), each launched on its own, give the
+// self form's bits.
 //
 // Bound: the fp64 pipe (each pair costs one sqrt and three divisions, which
 // Hopper runs as multi-instruction sequences) and the latency of the serial
@@ -49,8 +54,9 @@ static_assert(THREADS >= 3 * R, "one fold thread per row and component");
 // dsqrt instantiation is the same code whatever the other form costs
 template <int dist3>
 __global__ void __launch_bounds__(THREADS)
-accel_f64_kernel(const double* __restrict__ q, const double* __restrict__ gm,
-                 double* __restrict__ a, int n, double eps2) {
+accel_f64_kernel(const double* __restrict__ qi,
+                 const double* __restrict__ qj, const double* __restrict__ gm,
+                 double* __restrict__ a, int ni, int nj, double eps2) {
     __shared__ double s_qj[3][TJ];
     __shared__ double s_gm[TJ];
     __shared__ double s_qi[3][R];
@@ -59,19 +65,21 @@ accel_f64_kernel(const double* __restrict__ q, const double* __restrict__ gm,
     const int b = blockIdx.y;
     const int i0 = blockIdx.x * R;
     const int tid = threadIdx.x;
-    const double* qb = q + static_cast<size_t>(b) * n * 3;
-    const double* gb = gm + static_cast<size_t>(b) * n;
+    const double* qib = qi + static_cast<size_t>(b) * ni * 3;
+    const double* qb = qj + static_cast<size_t>(b) * nj * 3;
+    const double* gb = gm + static_cast<size_t>(b) * nj;
 
     if (tid < 3 * R) {
         const int r = tid / 3, c = tid % 3;
-        if (i0 + r < n) s_qi[c][r] = qb[static_cast<size_t>(i0 + r) * 3 + c];
+        if (i0 + r < ni)
+            s_qi[c][r] = qib[static_cast<size_t>(i0 + r) * 3 + c];
     }
     // fold thread: component fc of row fr
     const int fc = tid / R, fr = tid % R;
     double acc = 0.0;
 
-    for (int j0 = 0; j0 < n; j0 += TJ) {
-        const int cols = min(TJ, n - j0);
+    for (int j0 = 0; j0 < nj; j0 += TJ) {
+        const int cols = min(TJ, nj - j0);
         __syncthreads();  // the previous tile's terms are folded
         if (tid < 3 * TJ) {
             const int c = tid / TJ, jj = tid % TJ;
@@ -85,7 +93,7 @@ accel_f64_kernel(const double* __restrict__ q, const double* __restrict__ gm,
 
         for (int p = tid; p < R * TJ; p += THREADS) {
             const int r = p / TJ, jj = p % TJ;
-            if (i0 + r >= n || jj >= cols) continue;
+            if (i0 + r >= ni || jj >= cols) continue;
             nbody::b1_pair_term<dist3>(
                 s_qj[0][jj], s_qj[1][jj], s_qj[2][jj], s_gm[jj], s_qi[0][r],
                 s_qi[1][r], s_qi[2][r], eps2, s_term[0][r][jj],
@@ -98,27 +106,29 @@ accel_f64_kernel(const double* __restrict__ q, const double* __restrict__ gm,
                 acc = __dadd_rn(acc, s_term[fc][fr][jj]);
         }
     }
-    if (tid < 3 * R && i0 + fr < n)
-        a[(static_cast<size_t>(b) * n + i0 + fr) * 3 + fc] = acc;
+    if (tid < 3 * R && i0 + fr < ni)
+        a[(static_cast<size_t>(b) * ni + i0 + fr) * 3 + fc] = acc;
 }
 
 }  // namespace
 
-// dist3: 1 dsqrt, 2 sqrt3 (native/core.cc's numbers); anything else, or
-// an empty shape, returns cudaErrorInvalidValue without launching.
-extern "C" int accel_f64_launch(const double* q, const double* gm, double* a,
-                                int B, int n, double eps2, int dist3,
+// a (B, ni, 3) of rows qi (B, ni, 3) from sources qj (B, nj, 3) under gm
+// (B, nj). dist3: 1 dsqrt, 2 sqrt3 (native/core.cc's numbers); anything
+// else, or an empty shape, returns cudaErrorInvalidValue without launching.
+extern "C" int accel_f64_launch(const double* qi, const double* qj,
+                                const double* gm, double* a, int B, int ni,
+                                int nj, double eps2, int dist3,
                                 void* stream) {
-    if (B <= 0 || B > 65535 || n <= 0)  // B rides gridDim.y
+    if (B <= 0 || B > 65535 || ni <= 0 || nj <= 0)  // B rides gridDim.y
         return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((n + R - 1) / R, B);
+    const dim3 grid((ni + R - 1) / R, B);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dist3 == nbody::DIST3_DSQRT)
         accel_f64_kernel<nbody::DIST3_DSQRT><<<grid, THREADS, 0, s>>>(
-            q, gm, a, n, eps2);
+            qi, qj, gm, a, ni, nj, eps2);
     else if (dist3 == nbody::DIST3_SQRT3)
         accel_f64_kernel<nbody::DIST3_SQRT3><<<grid, THREADS, 0, s>>>(
-            q, gm, a, n, eps2);
+            qi, qj, gm, a, ni, nj, eps2);
     else
         return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());

@@ -2,8 +2,9 @@
 
 `solve_scene` answers the three problems of a scene: through the fused
 one-pass solver for small scenes with devices, otherwise through Problems
-1+2 and then Problem 3. Selecting the winning device is O(device count)
-host work.
+1+2 and then Problem 3; on a mesh of ranks always the phased drivers
+(parallel/solver_sharded.py). Selecting the winning device is O(device
+count) host work.
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ def select_winner(scene: Scene, arrivals: np.ndarray, saved: np.ndarray,
 def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
                 precision: str = "f64", device: str = "cuda",
                 timers: PhaseTimers | None = None,
-                checkpoint_path: str | None = None) -> Answers:
+                checkpoint_path: str | None = None, mesh=None,
+                tile: int | None = None) -> Answers:
     """Answer all three problems for a scene.
 
     precision:
@@ -96,8 +98,24 @@ def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
     checkpoint_path: every driver saves its carry after each chunk and
     resumes from it (models/direct_sum.py); a resumed run is bitwise equal
     to one that never stopped. Not used by 'exact'.
+    mesh: a ('scen', 'body') DeviceMesh of ranks (parallel/mesh.make_mesh),
+    each on its own device; `device` is then the mesh's. Every rank calls
+    solve_scene and gets the answers. Binary64 and 'tf3' answers are
+    bitwise the one-device ones on every mesh shape; 'f32' answers are
+    bitwise the same on every shape for one `tile` (default 128, at which
+    they are the one-device ones). Not for 'exact'.
+    tile: the float32 mesh's force tile; only with a mesh.
     """
+    if mesh is None and tile is not None:
+        raise ValueError("tile sets the mesh's float32 force tile; it "
+                         "applies only with a mesh")
+    if tile is not None and tile < 1:
+        raise ValueError(f"tile must be a positive number of bodies, got "
+                         f"{tile}")
     if precision == "exact":
+        if mesh is not None:
+            raise ValueError("a mesh does not apply to the native serial "
+                             "core (precision 'exact')")
         from .native import solve_exact
         return Answers(*solve_exact(scene, cfg,
                                     dist3_mode=cfg.resolved_dist3("exact")))
@@ -114,6 +132,19 @@ def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
         dtype = DD
     else:
         check_dist3(cfg.dist3_mode, precision)
+    if mesh is not None:
+        from .parallel.mesh import check_mesh
+        from .parallel.solver_sharded import solve_scene_sharded
+
+        check_mesh(mesh)
+
+        ans, _ = solve_scene_sharded(run_scene, run_cfg, mesh, dtype=dtype,
+                                     tile=tile,
+                                     checkpoint_path=checkpoint_path,
+                                     timers=timers)
+        return Answers(rescale.unscale_length(ans.min_dist),
+                       ans.hit_time_step, ans.gravity_device_id,
+                       ans.missile_cost)
     dev = resolve_device(device)
     if timers is None:
         timers = PhaseTimers(dev)

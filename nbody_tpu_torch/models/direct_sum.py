@@ -222,6 +222,23 @@ class P12Result:
     v_snaps: torch.Tensor      # (D, n, 3)
 
 
+def _resume_p12(c: Carry, saved, path: str) -> int:
+    """Load a P1+P2 checkpoint (`_load`'s tuple, or None) into the step-0
+    carry c; returns the step it stands at (0 without one)."""
+    if saved is None:
+        return 0
+    t0, q, v, extra, _ = saved
+    if q.shape[0] == 1:     # after the P2 early exit: P1 alone
+        c.m0, c.m_half = c.m0[:1], c.m_half[:1]
+    c.q = _restore(q, c.q, "q", path)
+    c.v = _restore(v, c.v, "v", path)
+    for name in ("min_d2", "hit", "arr", "q_snap", "v_snap"):
+        like = getattr(c, name)
+        setattr(c, name, _restore(extra[name][None], like[None], name,
+                                  path)[0])
+    return t0
+
+
 def _chunks(t0: int, cfg: SimConfig):
     """(s0, s1) of the chunks from step t0 to the horizon, on the grid of
     cfg.chunk_steps (a resumed run keeps the uninterrupted run's chunks)."""
@@ -248,17 +265,8 @@ def run_problems_12(scene: Scene, fst: np.ndarray, cfg: SimConfig, *,
     t0, fingerprint = 0, None
     if checkpoint_path is not None:
         fingerprint = _fingerprint(scene, cfg, dtype)
-        saved = _load(checkpoint_path, fingerprint, cfg.n_steps)
-        if saved is not None:
-            t0, q, v, extra, _ = saved
-            if q.shape[0] == 1:     # after the P2 early exit: P1 alone
-                c.m0, c.m_half = c.m0[:1], c.m_half[:1]
-            c.q = _restore(q, c.q, "q", checkpoint_path)
-            c.v = _restore(v, c.v, "v", checkpoint_path)
-            for name in ("min_d2", "hit", "arr", "q_snap", "v_snap"):
-                like = getattr(c, name)
-                setattr(c, name, _restore(extra[name][None], like[None],
-                                          name, checkpoint_path)[0])
+        t0 = _resume_p12(c, _load(checkpoint_path, fingerprint, cfg.n_steps),
+                         checkpoint_path)
     for s0, s1 in _chunks(t0, cfg):
         # one host read per chunk: the P2 early exit
         if c.q.shape[0] == 2 and int(c.hit) != -2:

@@ -110,15 +110,17 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(LIB_PATH)
     lib.accel_f64_launch.restype = ctypes.c_int
     lib.accel_f64_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, gm, a
-        ctypes.c_int, ctypes.c_int, ctypes.c_double,         # B, n, eps2
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # qi, qj, gm
+        ctypes.c_void_p, ctypes.c_int,                       # a, B
+        ctypes.c_int, ctypes.c_int, ctypes.c_double,         # ni, nj, eps2
         ctypes.c_int,                                        # dist3
         ctypes.c_void_p,                                     # cudaStream_t
     ]
     lib.accel_dd_launch.restype = ctypes.c_int
     lib.accel_dd_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, gm, a
-        ctypes.c_int, ctypes.c_int,                          # B, n
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # qi, qj, gm
+        ctypes.c_void_p, ctypes.c_int,                       # a, B
+        ctypes.c_int, ctypes.c_int,                          # ni, nj
         ctypes.c_double, ctypes.c_double,                    # eps2 hi, lo
         ctypes.c_void_p,                                     # cudaStream_t
     ]

@@ -11,10 +11,16 @@ of a scenario batch,
     w = gm_j * rsqrt(d2)^3;  a_i = sum over j-tiles of (sum over the tile of w*dx)
 
 with gm = fl(G * m_eff) hoisted by the caller and eps2 = fl32(eps^2). Batch
-rows never mix. The tile sums are added in ascending order, as the TPU
-kernel adds them; inside a tile the kernel folds serially and the plain
-version reduces with `torch.sum`, so the two agree to float32 rounding, not
-bit for bit.
+rows never mix. Both sum in the kernel's order: each 128-wide tile of
+sources folded from 0 in ascending j, the tile sums added from 0 in
+ascending order, as the TPU kernel adds its tile sums. So the plain version
+has the kernel's bits wherever its rsqrt has rsqrtf's (on the CPU,
+torch.rsqrt rounds otherwise), and a source block that is a whole number of
+tiles can be summed on its own and its sum added in order: the ordered ring
+of the mesh (parallel/sharded.py) gives this force's bits at tile 128. A
+source of zero mass adds a +-0 term, which no partial sum (never -0: it
+starts at +0 and rounds to nearest) notices, so zero-mass padding changes
+no bit.
 """
 
 from __future__ import annotations
@@ -22,8 +28,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# source tile of the plain version: the TPU kernel's default tile_j
-TILE_J = 2048
+# kernel B2's source tile (csrc/accel_f32.cu TJ), the plain version's too
+TILE_J = 128
+# pairs a plain call holds at once when it folds every tile side by side;
+# above it, it walks the tiles one at a time (the same bits either way)
+_PAIRS_AT_ONCE = 1 << 22
 _INT_MAX = 2 ** 31 - 1
 _MAX_B = 65535          # the grid's y limit, which the batch rides
 
@@ -62,22 +71,51 @@ def _check(qi: torch.Tensor, qj: torch.Tensor, gmj: torch.Tensor) -> None:
 def accel_f32_ref(qi: torch.Tensor, qj: torch.Tensor, gmj: torch.Tensor, *,
                   eps: float, tile_j: int = TILE_J) -> torch.Tensor:
     """Plain PyTorch version of kernel B2 in the dtype of its inputs (float32,
-    or float64 for a reference of it), batched or not as `accel_f32`:
-    broadcast ops over one j-tile at a time, so its memory is
-    O(B * ni * tile_j), never O(B * ni * nj)."""
+    or float64 for a reference of it), batched or not as `accel_f32`: each
+    tile of `tile_j` sources folded from 0 in ascending j, the tile sums
+    added from 0 in ascending order. The last tile is padded with sources
+    of zero mass (their +-0 terms change no sum). Small shapes fold all
+    tiles side by side; above _PAIRS_AT_ONCE pairs the tiles go one at a
+    time, so memory stays O(B * ni * tile_j)."""
     eps2 = eps2_f32(eps)
-    xi, yi, zi = (qi[..., c, None] for c in range(3))     # (..., ni, 1)
-    acc = torch.zeros_like(qi)
-    for j0 in range(0, qj.shape[-2], tile_j):
-        src = qj[..., None, j0:j0 + tile_j, :]           # (..., 1, tile, 3)
-        dx = src[..., 0] - xi                            # (..., ni, tile)
-        dy = src[..., 1] - yi
-        dz = src[..., 2] - zi
+    nj = qj.shape[-2]
+    tiles = -(-nj // tile_j)
+    if tiles == 1:
+        tile_j = nj             # one tile: no padding to fold
+    pad = tiles * tile_j - nj
+    if pad:
+        qj = torch.cat([qj, qj.new_zeros(qj.shape[:-2] + (pad, 3))], dim=-2)
+        gmj = torch.cat([gmj, gmj.new_zeros(gmj.shape[:-1] + (pad,))],
+                        dim=-1)
+    qi3 = qi[..., :, None, :]                          # (.., ni, 1, 3)
+
+    def tile_sums(j0: int, k: int) -> torch.Tensor:
+        """The sums (.., ni, k, 3) of tiles j0 / tile_j .. + k - 1, each
+        folded from 0 in ascending j."""
+        qt = qj[..., j0:j0 + k * tile_j, :].unflatten(-2, (k, tile_j))
+        gt = gmj[..., j0:j0 + k * tile_j].unflatten(-1, (k, tile_j))
+        # column jj of every tile first: (T, .., 1, k, 3) and (T, .., 1, k)
+        qt = qt.movedim(-2, 0).unsqueeze(-3)
+        gt = gt.movedim(-1, 0).unsqueeze(-2)
+        dq = qt - qi3                                 # (T, .., ni, k, 3)
+        dx, dy, dz = dq[..., 0], dq[..., 1], dq[..., 2]
         d2 = ((dx * dx + dy * dy) + dz * dz) + eps2
         inv = torch.rsqrt(d2)
-        w = gmj[..., None, j0:j0 + tile_j] * ((inv * inv) * inv)
-        acc = acc + torch.stack([(w * dx).sum(dim=-1), (w * dy).sum(dim=-1),
-                                 (w * dz).sum(dim=-1)], dim=-1)
+        w = gt * ((inv * inv) * inv)                  # (T, .., ni, k)
+        t = w[..., None] * dq
+        part = torch.zeros_like(t[0])
+        for jj in range(tile_j):
+            part = part + t[jj]
+        return part
+
+    B = qi[..., 0, 0].numel()
+    at_once = tiles if B * qi.shape[-2] * tiles * tile_j <= _PAIRS_AT_ONCE \
+        else 1
+    acc = torch.zeros_like(qi)
+    for k0 in range(0, tiles, at_once):
+        part = tile_sums(k0 * tile_j, min(at_once, tiles - k0))
+        for k in range(part.shape[-2]):
+            acc = acc + part[..., k, :]
     return acc
 
 

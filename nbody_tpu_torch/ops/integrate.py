@@ -10,6 +10,12 @@ serial-fold binary64 form, d2^1.5 as `dist3_mode` says). The `_dd` steps
 take a double-double state (ops/ddfloat: float64 tensors with a trailing
 axis of 2) and run kernel B4 (ops/accel_dd), with the update in
 double-double.
+
+`force`, where a step takes it, replaces the all-pairs kernel call: a
+function force(q, gm) -> a of the state as the step has it and gm =
+G * m_eff formed here. The mesh passes its own (parallel/): rows through
+the kernel's cross form and a gather, or the ordered ring over a sharded
+state; every other op of the step stays the same.
 """
 
 from __future__ import annotations
@@ -31,27 +37,32 @@ def scalar(x: float, dtype: torch.dtype) -> float:
 
 
 def accel(q: torch.Tensor, m_eff: torch.Tensor, *, G: float,
-          eps: float, dist3_mode: str = "dsqrt") -> torch.Tensor:
+          eps: float, dist3_mode: str = "dsqrt",
+          force=None) -> torch.Tensor:
     """Accelerations of q under effective masses m_eff.
 
     q (B, n, 3) and m_eff (B, n), a scenario batch, or one unbatched scene
     (n, 3), (n,). float32: kernel B2 with gm = fl32(m_eff * fl32(G)), one
     form whatever `dist3_mode` says; float64: kernel B1 with gm =
-    fl(m_eff * G)."""
+    fl(m_eff * G); `force(q, gm)` in the kernel's place if given."""
+    gm = m_eff * scalar(G, q.dtype)
+    if force is not None:
+        return force(q, gm)
     if q.dtype == torch.float32:
-        return accel_f32_self(q, m_eff * scalar(G, q.dtype), eps=eps)
+        return accel_f32_self(q, gm, eps=eps)
     if q.dim() == 2:
-        return accel_f64(q[None], (m_eff * G)[None], eps=eps,
-                         dist3_mode=dist3_mode)[0]
-    return accel_f64(q, m_eff * G, eps=eps, dist3_mode=dist3_mode)
+        q = q[None]
+        return accel_f64(q, q, gm[None], eps=eps, dist3_mode=dist3_mode)[0]
+    return accel_f64(q, q, gm, eps=eps, dist3_mode=dist3_mode)
 
 
 def symplectic_euler_step(q: torch.Tensor, v: torch.Tensor,
                           m_eff: torch.Tensor, *, G: float, eps: float,
-                          dt: float, dist3_mode: str = "dsqrt"):
+                          dt: float, dist3_mode: str = "dsqrt",
+                          force=None):
     """One step of q, v under effective masses m_eff (shapes as `accel`).
     Returns the new (q, v)."""
-    a = accel(q, m_eff, G=G, eps=eps, dist3_mode=dist3_mode)
+    a = accel(q, m_eff, G=G, eps=eps, dist3_mode=dist3_mode, force=force)
     dt = scalar(dt, q.dtype)
     v = v + a * dt
     q = q + v * dt
@@ -60,7 +71,7 @@ def symplectic_euler_step(q: torch.Tensor, v: torch.Tensor,
 
 def kdk_leapfrog_step(q: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
                       m_eff: torch.Tensor, *, G: float, eps: float,
-                      dt: float, dist3_mode: str = "dsqrt"):
+                      dt: float, dist3_mode: str = "dsqrt", force=None):
     """Kick-drift-kick leapfrog (velocity Verlet), 2nd order symplectic.
 
     State is (q, v, a) with `a` the acceleration at q; the end-of-step
@@ -69,20 +80,24 @@ def kdk_leapfrog_step(q: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
     kick = scalar(0.5 * dt, q.dtype)
     vh = v + a * kick
     q = q + vh * scalar(dt, q.dtype)
-    a = accel(q, m_eff, G=G, eps=eps, dist3_mode=dist3_mode)
+    a = accel(q, m_eff, G=G, eps=eps, dist3_mode=dist3_mode, force=force)
     v = vh + a * kick
     return q, v, a
 
 
 def accel_dd_state(q: torch.Tensor, m_eff: torch.Tensor, *, G: float,
-                   eps: float) -> torch.Tensor:
+                   eps: float, force=None) -> torch.Tensor:
     """Double-double accelerations of q (B, n, 3, 2) under effective masses
     m_eff (B, n, 2), or of one unbatched scene (n, 3, 2), (n, 2): kernel B4
-    with gm = m_eff * G in double-double (G a binary64 value)."""
+    with gm = m_eff * G in double-double (G a binary64 value);
+    `force(q, gm)` in the kernel's place if given."""
     gm = ddf.join(ddf.mul(ddf.split(m_eff), ddf.const(G)))
+    if force is not None:
+        return force(q, gm)
     if q.dim() == 3:
-        return accel_dd(q[None], gm[None], eps=eps)[0]
-    return accel_dd(q, gm, eps=eps)
+        q = q[None]
+        return accel_dd(q, q, gm[None], eps=eps)[0]
+    return accel_dd(q, q, gm, eps=eps)
 
 
 def _axpy_dd(x: torch.Tensor, a: torch.Tensor, h: float) -> torch.Tensor:
@@ -93,19 +108,19 @@ def _axpy_dd(x: torch.Tensor, a: torch.Tensor, h: float) -> torch.Tensor:
 
 def symplectic_euler_step_dd(q: torch.Tensor, v: torch.Tensor,
                              m_eff: torch.Tensor, *, G: float, eps: float,
-                             dt: float):
+                             dt: float, force=None):
     """`symplectic_euler_step` in double-double (shapes as
     `accel_dd_state`): v += a*dt, q += v*dt."""
-    a = accel_dd_state(q, m_eff, G=G, eps=eps)
+    a = accel_dd_state(q, m_eff, G=G, eps=eps, force=force)
     v = _axpy_dd(v, a, dt)
     return _axpy_dd(q, v, dt), v
 
 
 def kdk_leapfrog_step_dd(q: torch.Tensor, v: torch.Tensor, a: torch.Tensor,
                          m_eff: torch.Tensor, *, G: float, eps: float,
-                         dt: float):
+                         dt: float, force=None):
     """`kdk_leapfrog_step` in double-double."""
     vh = _axpy_dd(v, a, 0.5 * dt)
     q = _axpy_dd(q, vh, dt)
-    a = accel_dd_state(q, m_eff, G=G, eps=eps)
+    a = accel_dd_state(q, m_eff, G=G, eps=eps, force=force)
     return q, _axpy_dd(vh, a, 0.5 * dt), a

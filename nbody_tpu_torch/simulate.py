@@ -1,4 +1,4 @@
-"""General simulation API: march a scene for N steps on one device.
+"""General simulation API: march a scene for N steps.
 
 The graded solve only answers the three scenario questions; a user of the
 engine also wants the capability underneath ("integrate this system"),
@@ -8,10 +8,12 @@ precision:
     final = simulate(scene, n_steps=..., precision="f32",
                      integrator="leapfrog", device="cuda", on_chunk=callback)
 
-The port of `nbody_tpu.simulate.simulate` for a single device. Each step is
-a few eager PyTorch ops around one force-kernel launch. `chunk` sets how
-often the host reads the state back for `on_chunk` and never changes the
-arithmetic, so results are bitwise invariant to it.
+The port of `nbody_tpu.simulate.simulate`, on one device or over a mesh of
+ranks (`mesh`). Each step is a few eager PyTorch ops around one
+force-kernel launch (on the mesh: the kernel's cross form on this rank's
+rows and a gather, or the ordered ring). `chunk` sets how often the host
+reads the state back for `on_chunk` and never changes the arithmetic, so
+results are bitwise invariant to it.
 """
 
 from __future__ import annotations
@@ -110,12 +112,21 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
     them. Default (None): on for 'f32'. 'e64' and the extended
     representations carry their own low-order bits; asking for it there
     is an error.
-    mesh, tile: the body-sharded path, not ported yet (ROADMAP Queue 1
-    item 4).
+    mesh: a ('scen', 'body') DeviceMesh of ranks (parallel/mesh.make_mesh);
+    every rank calls simulate and gets the whole final state, and
+    `device` is the mesh's. 'f32' splits the bodies over 'body' (padded
+    with zero-mass bodies) around the ordered ring: bitwise the same on
+    every mesh shape for one `tile` (default 128, kernel B2's tile, where
+    it is bitwise the one-device run). The binary64 precisions and the
+    double-double ones keep the whole state on every rank and split the
+    force's rows over 'body' through the cross form of kernel B1 or B4,
+    then gather them: bitwise the one-device run on every mesh shape.
+    tile: the float32 mesh's force tile; only with a mesh.
     `on_chunk` is called with a host SimState after every chunk of
-    `chunk` steps (the checkpointing hook: pair it with
-    utils.checkpoint.CheckpointPolicy); a double-double state is handed
-    over rounded to binary64 (hi + lo), with the remainders in q_lo, v_lo.
+    `chunk` steps (on the mesh on rank 0 alone; the checkpointing hook:
+    pair it with utils.checkpoint.CheckpointPolicy); a double-double state
+    is handed over rounded to binary64 (hi + lo), with the remainders in
+    q_lo, v_lo.
     """
     if integrator not in ("euler", "leapfrog"):
         raise ValueError(f"unknown integrator: {integrator}")
@@ -126,17 +137,21 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
             "compensated accumulation applies to the native-dtype paths "
             "('f32', 'f64'); the extended representations carry their own "
             "low-order bits")
-    if mesh is not None or tile is not None:
-        raise NotImplementedError(
-            "the body-sharded simulate (mesh, tile) is not ported to "
-            "nbody_tpu_torch yet (ROADMAP Queue 1 item 4)")
+    if mesh is None and tile is not None:
+        raise ValueError("tile sets the mesh's float32 force tile; it "
+                         "applies only with a mesh")
     if precision not in ("f32",) + _BINARY64 + _DOUBLE_DOUBLE:
         raise ValueError(f"unknown precision for simulate: {precision}")
     if chunk < 1:
         raise ValueError(f"chunk must be at least 1, got {chunk}")
     if n_steps is None:
         n_steps = cfg.n_steps
-    dev = resolve_device(device)
+    if mesh is not None:
+        from .parallel.mesh import check_mesh, mesh_device
+        check_mesh(mesh)
+        dev = mesh_device(mesh)
+    else:
+        dev = resolve_device(device)
 
     rescale = IDENTITY
     run_scene, run_cfg = scene, cfg
@@ -151,10 +166,18 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
         if precision in _BINARY64:
             dist3 = check_dist3(cfg.dist3_mode, precision)
         dtype, np_dtype = torch.float64, np.float64
+    layout = force = None
+    if mesh is not None:
+        from .parallel.solver_sharded import Layout
+        layout = Layout(mesh, scene.n, ddf.NAME
+                        if precision in _DOUBLE_DOUBLE else dtype, tile)
+        force = layout.force(eps=run_cfg.eps, dist3=dist3)
+        on_chunk = _on_rank0(on_chunk)
     if precision in _DOUBLE_DOUBLE:
         return _simulate_dd(run_scene, run_cfg, n_steps=n_steps, device=dev,
                             devices_on=devices_on, chunk=chunk,
-                            integrator=integrator, on_chunk=on_chunk)
+                            integrator=integrator, on_chunk=on_chunk,
+                            force=force)
 
     # the oscillation table as host scalars of the state's dtype: each step
     # scales the device half-masses by one of them
@@ -164,7 +187,11 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
     m_half = 0.5 * m0 * mask
 
     def put(x):
-        return torch.from_numpy(np.asarray(x, dtype=np_dtype)).to(dev)
+        x = torch.from_numpy(np.asarray(x, dtype=np_dtype)).to(dev)
+        return x if layout is None else layout.local(x, dim=0)
+
+    def whole(x):
+        return x if layout is None else layout.whole(x, dim=0)
 
     q, v = put(run_scene.q), put(run_scene.v)
     m0t, m_halft = put(m0), put(m_half)
@@ -173,14 +200,14 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
 
     def host_state(step):
         return SimState(step=step,
-                        q=q.cpu().numpy().astype(np.float64) * inv,
-                        v=v.cpu().numpy().astype(np.float64) * inv)
+                        q=whole(q).cpu().numpy().astype(np.float64) * inv,
+                        v=whole(v).cpu().numpy().astype(np.float64) * inv)
 
     a = None
     if integrator == "leapfrog":
         # seeded at the initial positions with the first step's masses
         a = accel(q, m0t + m_halft * fst[min(1, n_steps)], G=G, eps=eps,
-                  dist3_mode=dist3)
+                  dist3_mode=dist3, force=force)
     if compensated:
         qc, vc = torch.zeros_like(q), torch.zeros_like(v)
         kick, drift = scalar(0.5 * dt, dtype), scalar(dt, dtype)
@@ -193,31 +220,46 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
             if integrator == "leapfrog" and compensated:
                 v, vc = _comp_add(v, vc, a * kick)
                 q, qc = _comp_add(q, qc, v * drift)
-                a = accel(q, m_eff, G=G, eps=eps, dist3_mode=dist3)
+                a = accel(q, m_eff, G=G, eps=eps, dist3_mode=dist3,
+                          force=force)
                 v, vc = _comp_add(v, vc, a * kick)
             elif integrator == "leapfrog":
                 q, v, a = kdk_leapfrog_step(q, v, a, m_eff, G=G, eps=eps,
-                                            dt=dt, dist3_mode=dist3)
+                                            dt=dt, dist3_mode=dist3,
+                                            force=force)
             elif compensated:
-                a = accel(q, m_eff, G=G, eps=eps, dist3_mode=dist3)
+                a = accel(q, m_eff, G=G, eps=eps, dist3_mode=dist3,
+                          force=force)
                 v, vc = _comp_add(v, vc, a * drift)
                 q, qc = _comp_add(q, qc, v * drift)
             else:
                 q, v = symplectic_euler_step(q, v, m_eff, G=G, eps=eps,
-                                             dt=dt, dist3_mode=dist3)
+                                             dt=dt, dist3_mode=dist3,
+                                             force=force)
         step += n_sub
         if on_chunk is not None:
             on_chunk(host_state(step))
     return host_state(step)
 
 
+def _on_rank0(on_chunk):
+    """on_chunk called on rank 0 of the mesh alone."""
+    import torch.distributed as dist
+
+    if on_chunk is None or dist.get_rank() == 0:
+        return on_chunk
+    return lambda state: None
+
+
 def _simulate_dd(scene: Scene, cfg: SimConfig, *, n_steps: int,
                  device: torch.device, devices_on: bool, chunk: int,
                  integrator: str,
-                 on_chunk: Optional[Callable[[SimState], None]]) -> SimState:
+                 on_chunk: Optional[Callable[[SimState], None]],
+                 force=None) -> SimState:
     """simulate() in double-double: the state, masses and update in
-    ops/ddfloat's arithmetic around one kernel B4 launch a step, on the raw
-    scene; the host sees hi + lo rounded to binary64."""
+    ops/ddfloat's arithmetic around one kernel B4 launch a step (or the
+    mesh's `force`), on the raw scene; the host sees hi + lo rounded to
+    binary64."""
     fst = oscillation_table(cfg, n_steps).tolist()
     mask = scene.device_mask()
     m0 = scene.m * (1.0 if devices_on else (1.0 - mask))
@@ -240,17 +282,18 @@ def _simulate_dd(scene: Scene, cfg: SimConfig, *, n_steps: int,
 
     a = None
     if integrator == "leapfrog":
-        a = accel_dd_state(q, m_eff(min(1, n_steps)), G=G, eps=eps)
+        a = accel_dd_state(q, m_eff(min(1, n_steps)), G=G, eps=eps,
+                           force=force)
     step = 0
     while step < n_steps:
         n_sub = min(chunk, n_steps - step)
         for s in range(step + 1, step + n_sub + 1):
             if integrator == "leapfrog":
                 q, v, a = kdk_leapfrog_step_dd(q, v, a, m_eff(s), G=G,
-                                               eps=eps, dt=dt)
+                                               eps=eps, dt=dt, force=force)
             else:
                 q, v = symplectic_euler_step_dd(q, v, m_eff(s), G=G,
-                                                eps=eps, dt=dt)
+                                                eps=eps, dt=dt, force=force)
         step += n_sub
         if on_chunk is not None:
             on_chunk(host_state(step))

@@ -73,10 +73,10 @@ def test_plain_version_against_jax_tf3(seed):
     g, eps = G * 2.0 ** (3 * rs.qe - rs.me), EPS * 2.0 ** rs.qe
     want = _tf3_to_dd(pairwise_accel_tf3(tfloat.from_f64(s.q),
                                          tfloat.from_f64(s.m), G=g, eps=eps))
-    got = ddf.split(accel_dd_ref(ddf.from_f64(s.q)[None], _gm(s.m, g)[None],
-                                 eps=eps)[0])
-    f64 = accel_f64_ref(torch.from_numpy(s.q)[None],
-                        torch.from_numpy(s.m * g)[None], eps=eps)[0]
+    qd, q64 = ddf.from_f64(s.q)[None], torch.from_numpy(s.q)[None]
+    got = ddf.split(accel_dd_ref(qd, qd, _gm(s.m, g)[None], eps=eps)[0])
+    f64 = accel_f64_ref(q64, q64, torch.from_numpy(s.m * g)[None],
+                        eps=eps)[0]
     e_dd = _err(got, want)
     e_f64 = _err(ddf.split(ddf.from_f64(f64)), want)
     assert e_dd <= JAX_TOL
@@ -106,8 +106,8 @@ def test_plain_version_against_decimal(n, seed):
     q = rng.randn(n, 3) * 1e10
     m = np.abs(rng.randn(n)) * 1e24
     gm = _gm(m, G)
-    got = ddf.split(accel_dd_ref(ddf.from_f64(q)[None], gm[None],
-                                 eps=EPS)[0])
+    qd = ddf.from_f64(q)[None]
+    got = ddf.split(accel_dd_ref(qd, qd, gm[None], eps=EPS)[0])
     D = decimal.Decimal
     gmd = [D(float(gm[j, 0])) + D(float(gm[j, 1])) for j in range(n)]
     want = _decimal_accel(q, gmd, EPS)
@@ -123,9 +123,9 @@ def test_batch_equals_one_call_per_row():
     q[..., 1] = q[..., 0] * torch.from_numpy(rng.uniform(-1, 1, (3, 19, 3))
                                              * 2.0 ** -54)
     gm = ddf.from_f64(np.abs(rng.randn(3, 19)) * 1e13)
-    got = accel_dd(q, gm, eps=EPS)
-    rows = torch.stack([accel_dd(q[b:b + 1], gm[b:b + 1], eps=EPS)[0]
-                        for b in range(3)])
+    got = accel_dd(q, q, gm, eps=EPS)
+    rows = torch.stack([accel_dd(q[b:b + 1], q[b:b + 1], gm[b:b + 1],
+                                 eps=EPS)[0] for b in range(3)])
     assert torch.equal(got, rows)
     assert torch.isfinite(got).all()
 
@@ -154,7 +154,7 @@ def test_wrapper_refuses_bad_inputs(case):
         q = torch.zeros((1, 4, 3, 4), dtype=torch.float64)[..., ::2]
     before = accel_dd.launches
     with pytest.raises(err):
-        accel_dd(q, gm, eps=EPS)
+        accel_dd(q, q, gm, eps=EPS)
     assert accel_dd.launches == before
 
 
@@ -162,8 +162,8 @@ def test_cpu_runs_the_plain_version_and_counts_no_launch():
     q = ddf.from_f64(np.random.RandomState(3).randn(1, 6, 3))
     gm = ddf.from_f64(np.ones((1, 6)))
     before = accel_dd.launches
-    assert torch.equal(accel_dd(q, gm, eps=EPS),
-                       accel_dd_ref(q, gm, eps=EPS))
+    assert torch.equal(accel_dd(q, q, gm, eps=EPS),
+                       accel_dd_ref(q, q, gm, eps=EPS))
     assert accel_dd.launches == before
 
 
@@ -178,9 +178,9 @@ def test_kernel_bitwise_equal_to_plain_version_on_card(cuda, B, n):
     gm = ddf.from_f64(G * np.abs(rng.randn(B, n)) * 1e24)
     qc, gc = q.to(cuda), gm.to(cuda)
     before = accel_dd.launches
-    got = accel_dd(qc, gc, eps=EPS)
+    got = accel_dd(qc, qc, gc, eps=EPS)
     torch.cuda.synchronize()
     assert accel_dd.launches == before + 1
-    assert torch.equal(got, accel_dd_ref(qc, gc, eps=EPS))
+    assert torch.equal(got, accel_dd_ref(qc, qc, gc, eps=EPS))
     if n <= 256:
-        assert torch.equal(got.cpu(), accel_dd_ref(q, gm, eps=EPS))
+        assert torch.equal(got.cpu(), accel_dd_ref(q, q, gm, eps=EPS))

@@ -2,9 +2,9 @@
 JAX package's Pallas fp32 kernel and against host binary64.
 
 `accel_f32_ref` sums each j-tile and adds the tile sums in ascending order,
-as `nbody_tpu.ops.pallas_forces._accel_kernel` does, but reduces inside a
-tile with `torch.sum` where the TPU kernel reduces with `jnp.sum`, so the
-two agree to float32 rounding: the tolerance of
+as `nbody_tpu.ops.pallas_forces._accel_kernel` does, but folds inside a
+tile serially, kernel B2's order, where the TPU kernel reduces with
+`jnp.sum`, so the two agree to float32 rounding: the tolerance of
 tests/test_pallas_interpret.py, rtol 2e-5 and atol 1e-6 of the peak. The
 same tolerance holds the scenario batch (B, n, 3) against the JAX package's
 XLA fp32 force `pairwise_accel_fast`, which the graded f32 solve runs; each

@@ -39,6 +39,12 @@ def _inputs(seed, B, n):
     return q, gm
 
 
+def _self(q, gm):
+    """The self form's arguments (q, q, gm) as CPU tensors."""
+    q = torch.from_numpy(q)
+    return q, q, torch.from_numpy(gm)
+
+
 def _bits(a):
     return np.asarray(a, dtype=np.float64).view(np.uint64)
 
@@ -48,7 +54,7 @@ def test_twin_bit_equal_to_pallas_e64_interpret():
     from nbody_tpu.ops.pallas_forces_e64 import pallas_accel_e64
 
     q, gm = _inputs(2, 3, 128)
-    got = accel_f64_ref(torch.from_numpy(q), torch.from_numpy(gm), eps=EPS)
+    got = accel_f64_ref(*_self(q, gm), eps=EPS)
     ref = pallas_accel_e64(fe.e64_from_f64_tree(q), fe.e64_from_f64_tree(gm),
                            eps=EPS, rows_i=1, tile_j=32, interpret=True)
     want = fe.e64_to_f64(ref)
@@ -61,7 +67,7 @@ def test_twin_bit_equal_to_host_f64(n, B):
     from test_pallas_e64 import _host_f64_accel
 
     q, gm = _inputs(100 * n + B, B, n)
-    got = accel_f64_ref(torch.from_numpy(q), torch.from_numpy(gm), eps=EPS)
+    got = accel_f64_ref(*_self(q, gm), eps=EPS)
     for b in range(B):
         np.testing.assert_array_equal(_bits(got[b].numpy()),
                                       _bits(_host_f64_accel(q[b], gm[b], EPS)))
@@ -88,9 +94,9 @@ def test_wrapper_on_cpu_runs_twin_and_counts_no_launch():
     q, gm = _inputs(7, 2, 20)
     qt, gmt = torch.from_numpy(q), torch.from_numpy(gm)
     before = accel_f64.launches
-    got = accel_f64(qt, gmt, eps=EPS)
+    got = accel_f64(qt, qt, gmt, eps=EPS)
     assert accel_f64.launches == before
-    assert torch.equal(got, accel_f64_ref(qt, gmt, eps=EPS))
+    assert torch.equal(got, accel_f64_ref(qt, qt, gmt, eps=EPS))
 
 
 @pytest.mark.parametrize("case", ["float32", "rank", "gm_shape", "strided",
@@ -110,7 +116,7 @@ def test_wrapper_rejects_bad_inputs(case):
     else:
         q, gm, err = q[:, :0], gm[:, :0], ValueError
     with pytest.raises(err):
-        accel_f64(q, gm, eps=EPS)
+        accel_f64(q, q, gm, eps=EPS)
 
 
 def test_symplectic_euler_step_matches_host():
@@ -136,9 +142,8 @@ def test_kernel_bit_equal_to_twin_on_card(cuda, B, n):
     q, gm = _inputs(11, B, n)
     qc, gmc = (torch.from_numpy(x).to(cuda) for x in (q, gm))
     before = accel_f64.launches
-    got = accel_f64(qc, gmc, eps=EPS)
+    got = accel_f64(qc, qc, gmc, eps=EPS)
     torch.cuda.synchronize()
     assert accel_f64.launches == before + 1
-    assert torch.equal(got, accel_f64_ref(qc, gmc, eps=EPS))
-    assert torch.equal(got.cpu(), accel_f64_ref(torch.from_numpy(q),
-                                                torch.from_numpy(gm), eps=EPS))
+    assert torch.equal(got, accel_f64_ref(qc, qc, gmc, eps=EPS))
+    assert torch.equal(got.cpu(), accel_f64_ref(*_self(q, gm), eps=EPS))

@@ -352,6 +352,6 @@ def test_launchers_refuse_bad_arguments_on_card(cuda):
     assert lib.graded_chunk_f64_launch(*[None] * 16, 0, 1, 4, 0, 0, 0,
                                        *[1.0] * 4, 0, 1, stream) == 1
     z = torch.zeros((1, 4, 3), dtype=torch.float64, device="cuda")
-    assert lib.accel_f64_launch(z.data_ptr(), z.data_ptr(), z.data_ptr(), 1,
-                                4, 1.0, 3, stream) == 1
+    assert lib.accel_f64_launch(z.data_ptr(), z.data_ptr(), z.data_ptr(),
+                                z.data_ptr(), 1, 4, 4, 1.0, 3, stream) == 1
     assert lib.fold_floor_f64_launch(None, None, None, 2048, 1, stream) == 1

@@ -6,9 +6,10 @@ On the CPU the port runs the plain versions of its kernels. Held against
     serially (kernel B1's order), XLA sums in its own order, so the two
     differ by ulps that 50 steps do not amplify past that;
   * 'f32', with and without Kahan compensation, at rtol 1e-5 with an atol
-    of 1e-5 of the peak: the port sums each j-tile with `torch.sum`, JAX
-    over all j at once, and the rsqrt implementations differ, all by
-    float32 roundings (the state itself is held to ~2e-8 of the peak).
+    of 1e-5 of the peak: the port folds each 128-wide j-tile serially
+    and adds the tile sums in order (kernel B2's order), JAX sums over all
+    j at once, and the rsqrt implementations differ, all by float32
+    roundings (the state itself is held to ~2e-8 of the peak).
 The port's results are bitwise invariant to the chunk size, on any device.
 """
 
@@ -176,8 +177,8 @@ def test_force_goes_through_the_kernel_wrappers(monkeypatch, precision,
 
 
 @pytest.mark.parametrize("kw,err", [
-    ({"mesh": object()}, NotImplementedError),
-    ({"tile": 64}, NotImplementedError),
+    ({"mesh": object()}, TypeError),
+    ({"tile": 64}, ValueError),
     ({"precision": "e64", "compensated": True}, ValueError),
     ({"precision": "tf3", "compensated": True}, ValueError),
     ({"precision": "dd", "compensated": True}, ValueError),

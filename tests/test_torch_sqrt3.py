@@ -72,8 +72,8 @@ def test_plain_force_is_the_serial_sqrt3_form():
     rng = np.random.RandomState(0)
     q = rng.randn(1, 9, 3) * 1e10
     gm = np.abs(rng.randn(1, 9)) * 1e13
-    got = accel_f64_ref(torch.from_numpy(q), torch.from_numpy(gm), eps=1e-3,
-                        dist3_mode="sqrt3")[0].numpy()
+    got = accel_f64_ref(torch.from_numpy(q), torch.from_numpy(q),
+                        torch.from_numpy(gm), eps=1e-3, dist3_mode="sqrt3")[0].numpy()
     for i in range(9):
         acc = [0.0, 0.0, 0.0]
         for j in range(9):
@@ -82,8 +82,8 @@ def test_plain_force_is_the_serial_sqrt3_form():
             d3 = math.sqrt((d2 * d2) * d2)
             acc = [acc[c] + (gm[0, j] * d[c]) / d3 for c in range(3)]
         assert got[i].tolist() == acc
-    dsqrt = accel_f64_ref(torch.from_numpy(q), torch.from_numpy(gm),
-                          eps=1e-3)[0].numpy()
+    dsqrt = accel_f64_ref(torch.from_numpy(q), torch.from_numpy(q),
+                          torch.from_numpy(gm), eps=1e-3)[0].numpy()
     assert not np.array_equal(got, dsqrt)     # the forms differ in ulps
 
 
@@ -219,7 +219,7 @@ def test_one_form_precisions_take_any_mode():
 def test_wrappers_refuse_unknown_forms():
     q = torch.zeros((1, 4, 3), dtype=torch.float64)
     with pytest.raises(KeyError):
-        accel_f64(q, torch.ones((1, 4), dtype=torch.float64), eps=1e-3,
+        accel_f64(q, q, torch.ones((1, 4), dtype=torch.float64), eps=1e-3,
                   dist3_mode="pow")
     c = ds._p12_carry(_port(_fuzz_scene(0)), oscillation_table(
         SimConfig(n_steps=10)), SimConfig(n_steps=10), "cpu", torch.float64)

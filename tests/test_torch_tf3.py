@@ -172,9 +172,9 @@ def test_simulate_tf3_goes_through_kernel_b4(monkeypatch, integrator,
     seen = []
     orig = integrate.accel_dd
 
-    def spy(q, gm, *, eps):
-        seen.append(q.shape)
-        return orig(q, gm, eps=eps)
+    def spy(qi, qj, gm, *, eps):
+        seen.append(qi.shape)
+        return orig(qi, qj, gm, eps=eps)
 
     monkeypatch.setattr(integrate, "accel_dd", spy)
     monkeypatch.setattr(integrate, "accel_f64", None)
