@@ -42,18 +42,20 @@ accel_dd_kernel(const dd* __restrict__ qi, const dd* __restrict__ qj,
                 dd eps2) {
     __shared__ Geo::Smem sm;
     const int b = blockIdx.y, i0 = blockIdx.x * Geo::R;
-    const size_t rows = static_cast<size_t>(b) * ni;
+    const int live = min(Geo::R, ni - i0);
+    const size_t rows = (static_cast<size_t>(b) * ni + i0) * 3;
     const size_t srcs = static_cast<size_t>(b) * nj;
-    nbody::dd_rows_qi<Geo>(qi + rows * 3, ni, i0, sm);
+    nbody::dd_rows_qi<Geo>(qi + rows, live, sm);
     if (threadIdx.x < Geo::NC) {
-        nbody::dd_rows_terms<Geo>(qj + srcs * 3, nj, eps2,
-                                  nbody::DdGmTable{gm + srcs}, sm);
+        // the sources (nj, 3): one block of nj rows
+        nbody::dd_rows_terms<Geo>(qj + srcs * 3, nbody::Blocks{nj, 0}, nj,
+                                  eps2, nbody::DdGmTable{gm + srcs}, sm);
         return;
     }
-    size_t x;
-    const bool folds = nbody::dd_fold_lane<Geo>(i0, ni, x);
+    int x;
+    const bool folds = nbody::dd_fold_lane<Geo>(live, x);
     const dd acc = nbody::dd_rows_fold<Geo>(nj, folds, sm);
-    if (folds) a[rows * 3 + x] = acc;
+    if (folds) a[rows + x] = acc;
 }
 
 }  // namespace

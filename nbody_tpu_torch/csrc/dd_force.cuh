@@ -28,6 +28,7 @@
 
 #include <cuda_runtime.h>
 
+#include "blocks.cuh"
 #include "dd.cuh"
 
 namespace nbody {
@@ -84,20 +85,20 @@ __device__ __forceinline__ void dd_bar_arrive(int id, int count) {
     asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
-// The block force of rows i0 .. i0 + R - 1 of the scenario row whose
-// positions are qb (n, 3), in three parts. Every thread of the block calls
-// dd_rows_qi; then the compute threads (threadIdx.x < NC) dd_rows_terms,
-// and the fold warp dd_rows_fold.
+// The block force of the `live` rows at qi (R at most, (live, 3)) against
+// the n sources of one scenario row whose positions start at qb, laid out
+// as L says (blocks.cuh; one block of n rows: (n, 3)), in three parts.
+// Every thread of the block calls dd_rows_qi; then the compute threads
+// (threadIdx.x < NC) dd_rows_terms, and the fold warp dd_rows_fold.
 
-// The block's rows into shared memory (a row past n reads as 0)
+// The block's rows into shared memory (a row past `live` reads as 0)
 template <class Geo>
-__device__ __forceinline__ void dd_rows_qi(const dd* __restrict__ qb, int n,
-                                           int i0, typename Geo::Smem& sm) {
+__device__ __forceinline__ void dd_rows_qi(const dd* __restrict__ qi,
+                                           int live, typename Geo::Smem& sm) {
     const int tid = threadIdx.x;
     if (tid < 3 * Geo::R) {
         const int r = tid / 3, c = tid % 3;
-        sm.qi[c][r] = i0 + r < n ? qb[static_cast<size_t>(i0 + r) * 3 + c]
-                                 : dd{0.0, 0.0};
+        sm.qi[c][r] = r < live ? qi[3 * r + c] : dd{0.0, 0.0};
     }
     __syncthreads();
 }
@@ -105,9 +106,12 @@ __device__ __forceinline__ void dd_rows_qi(const dd* __restrict__ qb, int n,
 // A compute thread: rows g * RPT .. g * RPT + RPT - 1 against column jj of
 // every tile, into the term ring; gms gives the sources' gm (DdGmTable or
 // alike)
-template <class Geo, class Gms>
+// Blocked: whether the sources may lie in several blocks (blocks.cuh
+// source_at)
+template <class Geo, class Gms, bool Blocked = false>
 __device__ __forceinline__ void dd_rows_terms(const dd* __restrict__ qb,
-                                              int n, dd eps2, const Gms& gms,
+                                              const Blocks& L, int n,
+                                              dd eps2, const Gms& gms,
                                               typename Geo::Smem& sm) {
     constexpr int TJ = Geo::TJ, RPT = Geo::RPT, NBUF = Geo::NBUF;
     const int g = threadIdx.x / TJ, jj = threadIdx.x % TJ;
@@ -131,6 +135,8 @@ __device__ __forceinline__ void dd_rows_terms(const dd* __restrict__ qb,
                 sm.term_lo[buf][c][g * RPT + k2][jj] = t[k2][c].lo;
             }
     };
+    // source column jj of tile k, k = 0, 1, ... in turn
+    BlockCursor cur(L, jj);
     if constexpr (!Gms::STAGED) {
         // each pair reads q_j and gm_j from global memory (the L1 cache
         // holds the tile), and no barrier ties the compute warps together
@@ -138,21 +144,22 @@ __device__ __forceinline__ void dd_rows_terms(const dd* __restrict__ qb,
             const int buf = k % NBUF, j = k * TJ + jj;
             if (k >= NBUF) dd_bar_sync(Geo::BAR_EMPTY + buf, Geo::THREADS);
             if (j < n) {
-                const dd* qj = qb + static_cast<size_t>(j) * 3;
+                const dd* qj = qb + source_at<Blocked>(cur, L, j);
                 terms(buf, qj[0], qj[1], qj[2], gms.form(gms.load(j)));
             }
             dd_bar_arrive(Geo::BAR_FULL + buf, Geo::THREADS);
         }
     } else {
         // value g of column jj of each tile, read from global memory two
-        // tiles ahead and staged in shared memory one tile ahead
+        // tiles ahead and staged in shared memory one tile ahead; load(k)
+        // is called for k = 0, 1, ... in turn
         dd rq{0.0, 0.0};
         typename Gms::Raw rg{};
         auto load = [&](int k) {
             const int j = k * TJ + jj;
             if (j >= n) return;
             if (g < 3)
-                rq = qb[static_cast<size_t>(j) * 3 + g];
+                rq = qb[source_at<Blocked>(cur, L, j) + g];
             else
                 rg = gms.load(j);
         };
@@ -181,13 +188,13 @@ __device__ __forceinline__ void dd_rows_terms(const dd* __restrict__ qb,
     }
 }
 
-// Whether this fold-warp thread folds a row component of a live row of the
-// block whose first row is i0; x: the index (i0 + row) * 3 + component
+// Whether this fold-warp thread folds a row component of one of the
+// block's `live` rows; x: the index row * 3 + component from the first
 template <class Geo>
-__device__ __forceinline__ bool dd_fold_lane(int i0, int n, size_t& x) {
+__device__ __forceinline__ bool dd_fold_lane(int live, int& x) {
     const int lane = static_cast<int>(threadIdx.x) - Geo::NC, fr = lane / 3;
-    x = static_cast<size_t>(i0 + fr) * 3 + lane % 3;
-    return lane < 3 * Geo::R && i0 + fr < n;
+    x = 3 * fr + lane % 3;
+    return lane < 3 * Geo::R && fr < live;
 }
 
 // The fold warp: lane (row, component) adds the component's terms over

@@ -1,6 +1,7 @@
-// The graded drivers' per-step checks on the card, shared by the fp64 and
-// fp32 graded step kernels (graded_step_f64.cu, graded_step_f32.cu), and
-// the host loop that advances one chunk of steps.
+// The graded drivers' per-step checks on the card, shared by the graded
+// step kernels (graded_step_f64.cu, graded_step_f32.cu, graded_step_dd.cu),
+// and the host loops that advance them: a chunk of steps on one device, or
+// one step of a rank of the mesh.
 //
 // A chunk from step s0 to s1 is s1 - s0 launches of a step kernel, one per
 // step t, and one launch of a check kernel. The launch of step t writes the
@@ -21,7 +22,10 @@
 //   P12  (rows P1 devices off, P2 devices on): min of P1's planet-asteroid
 //        d2 (torch.minimum: NaN wins); while P2 runs (B == 2), each device's
 //        arrival (its planet-device d2 below the missile's md2[p]), the
-//        (q, v) snapshot of P2 at that arrival, and P2's first hit.
+//        (q, v) snapshot of P2 at that arrival, and P2's first hit. The
+//        rows are named by roles (GradedArgs p1, p2): one device has P1 in
+//        row 0 and P2 in row 1 while P2 runs, P1 alone after the P2 early
+//        exit; a mesh whose 'scen' axis splits the two has one of them.
 //   P3   (one row per destroyed device, from its arrival snapshot): rows
 //        active at p (arr[b] < p) are flagged when they hit.
 //   P123 (rows P1, P2, then P3 rows): the P12 checks, then each P3 row
@@ -33,10 +37,20 @@
 //        chunk's end copies it.
 // d2 = ((dx*dx + dy*dy) + dz*dz) with d = q_planet - q_other, every op
 // round-to-nearest (ops/forces.sq_dist).
+//
+// The state is read and written in blocks of rows (blocks.cuh): one block
+// of n rows on one device, k blocks on a mesh of k body ranks, where a
+// launch computes the rows [r0, r0 + ni) of one rank and reads every row.
+// Every rank makes the same checks on the same gathered state, so their
+// carries agree without a collective (the JAX package's mesh design).
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
+
+#include "blocks.cuh"
 
 namespace nbody {
 
@@ -57,7 +71,35 @@ struct GradedArgs {
     T* v_snap;
     int mode, B, n, D, planet;
     T G, dt, eps2, r2;
+    int p1, p2;   // P12, P123: the scenario rows of P1 and P2; -1 if absent
+    int r0;       // this launch's rows: [r0, min(r0 + L.ni, n))
+    Blocks L;     // the state's layout
 };
+
+// The arguments of a chunk on one device: all n rows in one block, P1 in
+// row 0 and P2 in row 1 while it runs (P12 at B = 2, P123)
+template <typename T>
+GradedArgs<T> graded_args(const T* m0, const T* mh, const T* fst,
+                          const T* md2, const long long* others,
+                          long long* arr, long long* arr2, long long* hit,
+                          unsigned char* flag, T* min_d2, T* q_snap,
+                          T* v_snap, int mode, int B, int n, int D,
+                          int planet, T G, T dt, T eps2, T r2) {
+    GradedArgs<T> a{m0, mh, fst, md2, others, {arr, arr2}, hit, flag,
+                    min_d2, q_snap, v_snap, mode, B, n, D, planet, G, dt,
+                    eps2, r2};
+    a.p1 = mode == MODE_P3 ? -1 : 0;
+    a.p2 = mode == MODE_P123 || (mode == MODE_P12 && B == 2) ? 1 : -1;
+    a.r0 = 0;
+    a.L = Blocks{n, static_cast<long long>(B) * n * 3};
+    return a;
+}
+
+// The end of this launch's rows
+template <typename T>
+__device__ __forceinline__ int graded_end(const GradedArgs<T>& a) {
+    return min(a.r0 + a.L.ni, a.n);
+}
 
 __device__ __forceinline__ double rn_add(double a, double b) {
     return __dadd_rn(a, b);
@@ -92,25 +134,27 @@ __device__ __forceinline__ void graded_euler(T acc, T q, T v, T dt, T& q2,
     q2 = rn_add(q, rn_mul(v2, dt));
 }
 
-// |q_planet - q_other|^2 in one scenario row
+// |q_planet - q_other|^2 in scenario row b of q
 template <typename T>
-__device__ __forceinline__ T planet_d2(const T* row, int planet,
-                                       long long other) {
-    const T* p = row + static_cast<size_t>(planet) * 3;
-    const T* o = row + static_cast<size_t>(other) * 3;
+__device__ __forceinline__ T planet_d2(const GradedArgs<T>& a, const T* q,
+                                       int b, long long other) {
+    const T* p = q + a.L.at(b, a.planet);
+    const T* o = q + a.L.at(b, static_cast<int>(other));
     const T dx = rn_sub(p[0], o[0]);
     const T dy = rn_sub(p[1], o[1]);
     const T dz = rn_sub(p[2], o[2]);
     return rn_add(rn_add(rn_mul(dx, dx), rn_mul(dy, dy)), rn_mul(dz, dz));
 }
 
-// Copy one scenario row of (q, v), `row` values each, into (qd, vd), with
-// every thread of the block.
+// Copy scenario row b of (q, v) into (qd, vd), (n, 3) each, with every
+// thread of the block.
 template <typename T>
-__device__ void copy_row(const T* q, const T* v, T* qd, T* vd, size_t row) {
-    for (size_t x = threadIdx.x; x < row; x += blockDim.x) {
-        qd[x] = q[x];
-        vd[x] = v[x];
+__device__ void copy_row(const GradedArgs<T>& a, const T* q, const T* v,
+                         int b, T* qd, T* vd) {
+    for (int x = threadIdx.x; x < 3 * a.n; x += blockDim.x) {
+        const long long y = a.L.at(b, x / 3) + x % 3;
+        qd[x] = q[y];
+        vd[x] = v[y];
     }
 }
 
@@ -125,47 +169,45 @@ __device__ void graded_check(const GradedArgs<T>& a, T* q, T* v, int p,
     const size_t row = static_cast<size_t>(a.n) * 3;
     if (a.mode == MODE_P3) {
         for (int b = tid; b < a.B; b += blockDim.x)
-            if (a.arr[0][b] < p
-                && planet_d2(q + b * row, a.planet, a.others[0]) < a.r2)
+            if (a.arr[0][b] < p && planet_d2(a, q, b, a.others[0]) < a.r2)
                 a.flag[b] = 1;
         return;
     }
-    if (tid == 0) {
-        const T d = planet_d2(q, a.planet, a.others[0]);
+    if (tid == 0 && a.p1 >= 0) {
+        const T d = planet_d2(a, q, a.p1, a.others[0]);
         const T m = *a.min_d2;
         if (d < m || d != d) *a.min_d2 = d;
     }
-    if (a.B == 1) return;  // P12 after the P2 early exit: P1 alone
-    const T* q1 = q + row;
+    if (a.p2 < 0) return;  // P1 alone (after the P2 early exit, or a mesh)
+    const int p2 = a.p2;
     const long long* arr_rd = a.arr[(p + 1) & 1];
     long long* arr_wr = a.arr[p & 1];
     for (int k = tid; k < a.D; k += blockDim.x) {
         const long long before = arr_rd[k];
         const bool pending = before == -2;
         const long long now =
-            pending && planet_d2(q1, a.planet, a.others[1 + k]) < a.md2[p]
+            pending && planet_d2(a, q, p2, a.others[1 + k]) < a.md2[p]
                 ? p : before;
         arr_wr[k] = now;
         if (a.mode == MODE_P123) {
-            const T* qk = pending ? q1 : q + (2 + k) * row;
-            if (now != -2 && planet_d2(qk, a.planet, a.others[0]) < a.r2)
+            const int bk = pending ? p2 : 2 + k;
+            if (now != -2 && planet_d2(a, q, bk, a.others[0]) < a.r2)
                 a.flag[k] = 1;
         }
     }
-    if (tid == 0 && *a.hit == -2
-        && planet_d2(q1, a.planet, a.others[0]) < a.r2)
+    if (tid == 0 && *a.hit == -2 && planet_d2(a, q, p2, a.others[0]) < a.r2)
         *a.hit = p;
     if (a.mode == MODE_P12) {
         __syncthreads();  // arr_wr is complete
         for (int k = 0; k < a.D; ++k)
             if (arr_wr[k] == p)  // arrivals happen only at the step checked
-                copy_row(q1, v + row, a.q_snap + k * row, a.v_snap + k * row,
-                         row);
+                copy_row(a, q, v, p2, a.q_snap + k * row, a.v_snap + k * row);
     } else if (mirror) {
+        // P123 runs on one device only (one block: a row is contiguous)
         for (int k = 0; k < a.D; ++k)
             if (arr_rd[k] == -2)
-                copy_row(q1, v + row, q + (2 + k) * row, v + (2 + k) * row,
-                         row);
+                copy_row(a, q, v, p2, q + a.L.at(2 + k, 0),
+                         v + a.L.at(2 + k, 0));
     }
 }
 
@@ -177,15 +219,17 @@ __device__ __forceinline__ bool graded_frozen(const GradedArgs<T>& a, int b,
     return a.mode == MODE_P3 && !(a.arr[0][b] < t);
 }
 
-// Bodies i0 .. i0 + count - 1 of scenario row b copied from (q, v) to
-// (qo, vo), with every thread of the block.
+// This launch's bodies i0 .. i0 + count - 1 (those before its end) of
+// scenario row b copied from (q, v) to (qo, vo), with every thread of the
+// block; they lie in one block of the layout, one after another.
 template <typename T>
-__device__ void copy_bodies(const T* q, const T* v, T* qo, T* vo, int b,
-                            int i0, int count, int n) {
-    const size_t base = static_cast<size_t>(b) * n * 3;
-    const size_t hi = base + static_cast<size_t>(min(i0 + count, n)) * 3;
-    for (size_t x = base + static_cast<size_t>(i0) * 3 + threadIdx.x; x < hi;
-         x += blockDim.x) {
+__device__ void copy_bodies(const GradedArgs<T>& a, const T* q, const T* v,
+                            T* qo, T* vo, int b, int i0, int count) {
+    const int i1 = min(i0 + count, graded_end(a));
+    if (i1 <= i0) return;
+    const long long base = a.L.at(b, i0);
+    const long long hi = base + 3LL * (i1 - i0);
+    for (long long x = base + threadIdx.x; x < hi; x += blockDim.x) {
         qo[x] = q[x];
         vo[x] = v[x];
     }
@@ -204,6 +248,36 @@ __device__ __forceinline__ int graded_source_row(const GradedArgs<T>& a,
 inline bool graded_args_ok(int mode, int B, int n, int D, int s0, int s1) {
     return mode >= MODE_P12 && mode <= MODE_P123 && B >= 1 && B <= 65535
            && n >= 1 && D >= 0 && s0 >= 0 && s1 > s0;
+}
+
+// A mesh rank's chunk (P12 or P3; the mesh has no fused driver): n rows
+// in k blocks of ni = ceil(n / k); in P12 each role a row of the B (at
+// most 2) rows or -1, B of them present and distinct; in P3 none.
+inline bool graded_rows_ok(int mode, int B, int n, int p1, int p2, int ni,
+                           int k) {
+    if (k < 1 || n < 1 || ni != (n + k - 1) / k) return false;
+    if (mode == MODE_P3) return p1 == -1 && p2 == -1;
+    return mode == MODE_P12 && B <= 2 && p1 >= -1 && p1 < B && p2 >= -1
+           && p2 < B && p1 != p2 && (p1 >= 0) + (p2 >= 0) == B;
+}
+
+// Make the arguments `a` of a one-device chunk those of a mesh rank's
+// launch: the roles, the layout (each block holds its q rows and then its
+// v rows: 2 * B * ni * 3 elements), and the rows from r0, a block's first
+// row, at step t (a step from 1, the closing checks from 0); false if
+// refused.
+template <typename T>
+bool graded_rows_args(GradedArgs<T>& a, int p1, int p2, int ni, int k,
+                      int r0, int t, bool step) {
+    if (!graded_args_ok(a.mode, a.B, a.n, a.D, 0, 1)
+        || !graded_rows_ok(a.mode, a.B, a.n, p1, p2, ni, k) || r0 < 0
+        || r0 % ni != 0 || r0 / ni >= k || t < (step ? 1 : 0))
+        return false;
+    a.p1 = p1;
+    a.p2 = p2;
+    a.r0 = r0;
+    a.L = Blocks{ni, 6LL * a.B * ni};
+    return true;
 }
 
 // Steps s0 + 1 .. s1 from the state in (q0, v0); the result lies in
@@ -226,6 +300,29 @@ int graded_chunk(Step step, Check check, dim3 grid,
     }
     const int last = (s1 - s0) & 1;
     check<<<1, check_threads, 0, stream>>>(a, q[last], v[last], s1);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// A mesh rank's launch of step t from the state (q, v) into (q_out, v_out),
+// checking step t - 1 first if `check`; with q_out null, the checks of step
+// t on (q, v) alone (a chunk's closing launch). The host gathers the
+// ranks' rows between two launches. Returns the launch error, or 0.
+template <typename T, typename Step, typename Check>
+int graded_rows_launch(Step step, Check check, int rows_a_block,
+                       int threads, int check_threads,
+                       const GradedArgs<T>& a, T* q, T* v, T* q_out,
+                       T* v_out, int t, int check_prev, cudaStream_t stream,
+                       size_t smem = 0) {
+    if (q_out == nullptr) {
+        check<<<1, check_threads, 0, stream>>>(a, q, v, t);
+    } else {
+        // a rank without rows (r0 past n) still makes the checks
+        const int rows = std::min(a.r0 + a.L.ni, a.n) - a.r0;
+        const dim3 grid(
+            std::max(1, (rows + rows_a_block - 1) / rows_a_block), a.B);
+        step<<<grid, threads, smem, stream>>>(a, q, v, q_out, v_out, t,
+                                              check_prev);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 

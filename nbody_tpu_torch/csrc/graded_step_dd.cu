@@ -30,6 +30,15 @@
 // chain of divisions sets its time, and 4 rows a block, one a thread,
 // keep that chain short.
 //
+// The mesh, the row-range form, as in graded_step_f64.cu: a launch takes
+// the rows [r0, r0 + ni) of a state kept in k blocks of ni rows
+// (blocks.cuh), reads every row as a source and writes its rows; one
+// device is k = 1, r0 = 0, ni = n of the same kernel, in the
+// instantiation that knows the sources lie in one block (Blocked = false),
+// which a mesh of one body rank runs too.
+// The geometry follows n, not ni, so every mesh shape runs the one-device
+// geometry.
+//
 // Bound: the fp64 pipe, B4's 333 fp64 instructions a pair (the pair term
 // 309, the fold 24; chip_smoke.py B4_INSTR_PER_PAIR, counted in the SASS
 // by scripts/sass_count.py). What the bound leaves out: gm_j, 38
@@ -80,42 +89,47 @@ struct GradedGm {
     }
 };
 
-template <class Geo>
+// Blocked: whether the state may lie in several blocks (the mesh)
+template <class Geo, bool Blocked>
 __global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
 graded_step_dd_kernel(GradedArgs<dd> a, const dd* __restrict__ q_in,
                       const dd* __restrict__ v_in, dd* __restrict__ q_out,
                       dd* __restrict__ v_out, int t, int check) {
     extern __shared__ __align__(16) unsigned char smem[];
     auto& sm = *reinterpret_cast<typename Geo::Smem*>(smem);
-    const int b = blockIdx.y, i0 = blockIdx.x * Geo::R, n = a.n;
-    const size_t row = static_cast<size_t>(n) * 3;
+    const int b = blockIdx.y, i0 = a.r0 + blockIdx.x * Geo::R, n = a.n;
+    const int live = min(Geo::R, nbody::graded_end(a) - i0);
     if (check && blockIdx.x == 0 && b == 0)
         nbody::graded_check(a, const_cast<dd*>(q_in), const_cast<dd*>(v_in),
                             t - 1, false);
+    if (live <= 0) return;  // a rank without rows: the checks only
     if (nbody::graded_frozen(a, b, t)) {
-        nbody::copy_bodies(q_in, v_in, q_out, v_out, b, i0, Geo::R, n);
+        nbody::copy_bodies(a, q_in, v_in, q_out, v_out, b, i0, Geo::R);
         return;
     }
+    // scenario row src's sources from qb; the block's rows from qb + own,
+    // written to the same place of scenario row b
     const int src = nbody::graded_source_row(a, b, t, check);
-    const dd* qb = q_in + src * row;
-    const dd* vb = v_in + src * row;
-    nbody::dd_rows_qi<Geo>(qb, n, i0, sm);
+    const long long sb = 3LL * src * a.L.ni, own = a.L.at(0, i0);
+    const long long ob = 3LL * b * a.L.ni + own;
+    const dd* qb = q_in + sb;
+    nbody::dd_rows_qi<Geo>(qb + own, live, sm);
     if (threadIdx.x < Geo::NC) {
         const size_t mb = static_cast<size_t>(b) * n;
-        nbody::dd_rows_terms<Geo>(
-            qb, n, a.eps2, GradedGm{a.m0 + mb, a.mh + mb, a.fst[t], a.G}, sm);
+        nbody::dd_rows_terms<Geo, GradedGm, Blocked>(
+            qb, a.L, n, a.eps2,
+            GradedGm{a.m0 + mb, a.mh + mb, a.fst[t], a.G}, sm);
         return;
     }
     // the fold warp; a lane reads its row component's state before the
     // fold and applies the Euler update after it
-    size_t x;
-    const bool folds = nbody::dd_fold_lane<Geo>(i0, n, x);
-    const dd q0 = folds ? qb[x] : dd{0.0, 0.0};
-    const dd v0 = folds ? vb[x] : dd{0.0, 0.0};
+    int x;
+    const bool folds = nbody::dd_fold_lane<Geo>(live, x);
+    const dd q0 = folds ? qb[own + x] : dd{0.0, 0.0};
+    const dd v0 = folds ? v_in[sb + own + x] : dd{0.0, 0.0};
     const dd acc = nbody::dd_rows_fold<Geo>(n, folds, sm);
     if (folds)
-        nbody::graded_euler(acc, q0, v0, a.dt, q_out[b * row + x],
-                            v_out[b * row + x]);
+        nbody::graded_euler(acc, q0, v0, a.dt, q_out[ob + x], v_out[ob + x]);
 }
 
 __global__ void __launch_bounds__(CHECK_THREADS)
@@ -127,9 +141,9 @@ using StepKernel = void (*)(GradedArgs<dd>, const dd*, const dd*, dd*, dd*,
                             int, int);
 
 // The step kernel of geometry Geo, with its dynamic shared memory allowed
-template <class Geo>
+template <class Geo, bool Blocked = false>
 cudaError_t step_kernel(StepKernel* kernel, size_t* smem) {
-    *kernel = graded_step_dd_kernel<Geo>;
+    *kernel = graded_step_dd_kernel<Geo, Blocked>;
     *smem = sizeof(typename Geo::Smem);
     return cudaFuncSetAttribute(*kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -148,6 +162,22 @@ int chunk_dd(const GradedArgs<dd>& a, dd* q, dd* v, dd* q2, dd* v2, int s0,
     return nbody::graded_chunk(kernel, graded_check_dd_kernel, grid,
                                Geo::THREADS, CHECK_THREADS, a, q, v, q2, v2,
                                s0, s1, stream, smem);
+}
+
+// One launch of a mesh rank in geometry Geo (graded.cuh
+// graded_rows_launch); several blocks or one (one device's instantiation)
+template <class Geo, bool Blocked>
+int rows_dd(const GradedArgs<dd>& a, dd* qv, dd* qv_out, int t, int check,
+            void* stream) {
+    StepKernel kernel;
+    size_t smem;
+    const cudaError_t err = step_kernel<Geo, Blocked>(&kernel, &smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long half = a.L.stride / 2;   // a block's q rows, then v's
+    return nbody::graded_rows_launch(
+        kernel, graded_check_dd_kernel, Geo::R, Geo::THREADS, CHECK_THREADS,
+        a, qv, qv + half, qv_out, qv_out ? qv_out + half : nullptr, t, check,
+        static_cast<cudaStream_t>(stream), smem);
 }
 
 // graded_step_dd_info in geometry Geo
@@ -192,15 +222,45 @@ extern "C" int graded_chunk_dd_launch(
         return static_cast<int>(cudaErrorInvalidValue);
     auto d = [](double* p) { return reinterpret_cast<dd*>(p); };
     auto cd = [](const double* p) { return reinterpret_cast<const dd*>(p); };
-    const GradedArgs<dd> a{cd(m0), cd(mh), cd(fst), cd(md2), others,
-                           {arr, arr2}, hit, flag, d(min_d2), d(q_snap),
-                           d(v_snap), mode, B, n, D, planet, dd{G_hi, G_lo},
-                           dd{dt_hi, dt_lo}, dd{eps2_hi, eps2_lo},
-                           dd{r2_hi, r2_lo}};
+    const GradedArgs<dd> a = nbody::graded_args(
+        cd(m0), cd(mh), cd(fst), cd(md2), others, arr, arr2, hit, flag,
+        d(min_d2), d(q_snap), d(v_snap), mode, B, n, D, planet,
+        dd{G_hi, G_lo}, dd{dt_hi, dt_lo}, dd{eps2_hi, eps2_lo},
+        dd{r2_hi, r2_lo});
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     return n <= NARROW_MAX_N
                ? chunk_dd<Narrow>(a, d(q), d(v), d(q2), d(v2), s0, s1, s)
                : chunk_dd<Wide>(a, d(q), d(v), d(q2), d(v2), s0, s1, s);
+}
+
+// One launch of a mesh rank in double-double: graded_rows_f64_step's
+// arguments (graded_step_f64.cu) as pairs of doubles, with G, dt, eps2
+// and r2 as (hi, lo), and no dist3
+extern "C" int graded_rows_dd_step(
+        const double* m0, const double* mh, const double* fst,
+        const double* md2, const long long* others, long long* arr,
+        long long* arr2, long long* hit, unsigned char* flag, double* min_d2,
+        double* q_snap, double* v_snap, int mode, int B, int n, int D,
+        int planet, int p1, int p2, int ni, int k, double G_hi, double G_lo,
+        double dt_hi, double dt_lo, double eps2_hi, double eps2_lo,
+        double r2_hi, double r2_lo, double* qv, double* qv_out, int r0,
+        int t, int check, void* stream) {
+    auto d = [](double* p) { return reinterpret_cast<dd*>(p); };
+    auto cd = [](const double* p) { return reinterpret_cast<const dd*>(p); };
+    GradedArgs<dd> a = nbody::graded_args(
+        cd(m0), cd(mh), cd(fst), cd(md2), others, arr, arr2, hit, flag,
+        d(min_d2), d(q_snap), d(v_snap), mode, B, n, D, planet,
+        dd{G_hi, G_lo}, dd{dt_hi, dt_lo}, dd{eps2_hi, eps2_lo},
+        dd{r2_hi, r2_lo});
+    if (!nbody::graded_rows_args(a, p1, p2, ni, k, r0, t, qv_out != nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    dd* in = d(qv);
+    dd* out = d(qv_out);
+    if (n <= NARROW_MAX_N)
+        return k > 1 ? rows_dd<Narrow, true>(a, in, out, t, check, stream)
+                     : rows_dd<Narrow, false>(a, in, out, t, check, stream);
+    return k > 1 ? rows_dd<Wide, true>(a, in, out, t, check, stream)
+                 : rows_dd<Wide, false>(a, in, out, t, check, stream);
 }
 
 // What the card says about the step kernel as it runs at n bodies, into

@@ -17,7 +17,9 @@
 // to kernel B2 (accel_f32.cu) at any n, and the step to B2 plus the PyTorch
 // ops of the drivers' plain chunk.
 //
-// Layout: a block owns RB rows and walks the sources in
+// Layout: one device only (graded.cuh's one block of n rows; the f32 mesh
+// shards bodies around the ordered ring instead). A block owns RB rows and
+// walks the sources in
 // rounds of TW tiles. In a round, all THREADS threads compute the pair
 // terms of the block's rows into shared memory, a source per thread at a
 // time; then one thread per (row, component, tile) folds that tile's 128
@@ -67,7 +69,7 @@ graded_step_f32_kernel(GradedArgs<float> a, const float* __restrict__ q_in,
     float* qo = q_out + b * row;
     float* vo = v_out + b * row;
     if (nbody::graded_frozen(a, b, t)) {
-        nbody::copy_bodies(q_in, v_in, q_out, v_out, b, i0, RB, n);
+        nbody::copy_bodies(a, q_in, v_in, q_out, v_out, b, i0, RB);
         return;
     }
     const int src = nbody::graded_source_row(a, b, t, check);
@@ -152,9 +154,9 @@ extern "C" int graded_chunk_f32_launch(
         float dt, float eps2, float r2, int s0, int s1, void* stream) {
     if (!nbody::graded_args_ok(mode, B, n, D, s0, s1))
         return static_cast<int>(cudaErrorInvalidValue);
-    const GradedArgs<float> a{m0, mh, fst, md2, others, {arr, arr2}, hit,
-                              flag, min_d2, q_snap, v_snap, mode, B, n, D,
-                              planet, G, dt, eps2, r2};
+    const GradedArgs<float> a = nbody::graded_args(
+        m0, mh, fst, md2, others, arr, arr2, hit, flag, min_d2, q_snap,
+        v_snap, mode, B, n, D, planet, G, dt, eps2, r2);
     const dim3 grid((n + RB - 1) / RB, B);
     return nbody::graded_chunk(
         graded_step_f32_kernel, graded_check_f32_kernel, grid, THREADS,

@@ -29,6 +29,20 @@
 // rows in a 256-thread block (64 blocks at B = 1), three barriers a tile,
 // and let 208 of its threads idle while 48 folded.
 //
+// The mesh, the row-range form: a launch takes the rows [r0, r0 + ni)
+// of a state kept in k blocks of ni rows (blocks.cuh, the layout the
+// mesh's all_gather makes), reads every row as a source, and writes its
+// rows into the same place of the other buffer; block (0, 0) checks the
+// previous step on the whole state. One device is the case k = 1, r0 = 0,
+// ni = n of the same kernel, in the instantiation Blocked = false, which
+// knows that the sources lie in one block, as does a mesh of one body
+// rank; Blocked = true (k > 1) walks them with a BlockCursor (a compare
+// and an add a pair, no division). The walk in
+// the one-device path cost it 3.5% at B=1, and at B=2 27% through its
+// registers (58: three blocks an SM where 54 to 56 leave four), on an
+// "NVIDIA H100 80GB HBM3, 700.00 W"; the instantiation that knows is
+// within 1%.
+//
 // Bound: the fold's latency and the fp64 pipe. Each row component is a
 // chain of n dependent fp64 adds, which no reassociation may shorten (at
 // n = 1024 about 5 us on the card, chip_smoke.py phase 2's fold probe);
@@ -65,8 +79,9 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
 }
 
 // dist3: the form of d2^1.5 (forces.cuh), a template argument, so the
-// dsqrt instantiation is the same code whatever the other form costs
-template <int dist3>
+// dsqrt instantiation is the same code whatever the other form costs;
+// Blocked: whether the state may lie in several blocks (the mesh)
+template <int dist3, bool Blocked>
 __global__ void __launch_bounds__(THREADS, 2)
 graded_step_f64_kernel(GradedArgs<double> a, const double* __restrict__ q_in,
                        const double* __restrict__ v_in,
@@ -75,28 +90,27 @@ graded_step_f64_kernel(GradedArgs<double> a, const double* __restrict__ q_in,
     __shared__ double s_qi[3][R];
     __shared__ double s_term[NBUF][3][R][TJ + 1];  // +1: no bank conflicts
 
-    const int b = blockIdx.y, i0 = blockIdx.x * R, tid = threadIdx.x;
-    const int n = a.n;
-    const size_t row = static_cast<size_t>(n) * 3;
+    const int b = blockIdx.y, i0 = a.r0 + blockIdx.x * R, tid = threadIdx.x;
+    const int n = a.n, live = min(R, nbody::graded_end(a) - i0);
     if (check && blockIdx.x == 0 && b == 0)
         nbody::graded_check(a, const_cast<double*>(q_in),
                             const_cast<double*>(v_in), t - 1, false);
-
-    double* qo = q_out + b * row;
-    double* vo = v_out + b * row;
+    if (live <= 0) return;  // a rank without rows: the checks only
     if (nbody::graded_frozen(a, b, t)) {
-        nbody::copy_bodies(q_in, v_in, q_out, v_out, b, i0, R, n);
+        nbody::copy_bodies(a, q_in, v_in, q_out, v_out, b, i0, R);
         return;
     }
+    // scenario row src's sources from qb; the block's rows from qb + own,
+    // written to the same place of scenario row b
     const int src = nbody::graded_source_row(a, b, t, check);
-    const double* qb = q_in + src * row;
-    const double* vb = v_in + src * row;
+    const long long sb = 3LL * src * a.L.ni, own = a.L.at(0, i0);
+    const long long ob = 3LL * b * a.L.ni + own;
+    const double* qb = q_in + sb;
     const size_t mb = static_cast<size_t>(b) * n;
     const double f = a.fst[t];
     if (tid < 3 * R) {
         const int r = tid / 3, c = tid % 3;
-        s_qi[c][r] = i0 + r < n ? qb[static_cast<size_t>(i0 + r) * 3 + c]
-                                : 0.0;
+        s_qi[c][r] = r < live ? qb[own + 3 * r + c] : 0.0;
     }
     __syncthreads();
 
@@ -105,13 +119,14 @@ graded_step_f64_kernel(GradedArgs<double> a, const double* __restrict__ q_in,
         // compute threads: the pair (row r, column jj) of every tile
         const int r = tid / TJ, jj = tid % TJ;
         const double xi = s_qi[0][r], yi = s_qi[1][r], zi = s_qi[2][r];
-        const bool live = i0 + r < n;
+        const bool row_live = r < live;
+        nbody::BlockCursor cur(a.L, jj);
         for (int k = 0; k < tiles; ++k) {
             const int buf = k % NBUF;
             if (k >= NBUF) bar_sync(BAR_EMPTY + buf, THREADS);
             const int j = k * TJ + jj;
-            if (live && j < n) {
-                const double* qj = qb + static_cast<size_t>(j) * 3;
+            if (row_live && j < n) {
+                const double* qj = qb + nbody::source_at<Blocked>(cur, a.L, j);
                 nbody::b1_pair_term<dist3>(
                     qj[0], qj[1], qj[2],
                     nbody::graded_gm(a.m0[mb + j], a.mh[mb + j], f, a.G),
@@ -124,9 +139,10 @@ graded_step_f64_kernel(GradedArgs<double> a, const double* __restrict__ q_in,
     }
     // the fold warp: lane (fr, fc) folds component fc of row fr
     const int lane = tid - NC, fr = lane / 3, fc = lane % 3;
-    const bool folds = lane < 3 * R && i0 + fr < n;
-    const size_t x = static_cast<size_t>(i0 + fr) * 3 + fc;
-    const double q0 = folds ? qb[x] : 0.0, v0 = folds ? vb[x] : 0.0;
+    const bool folds = lane < 3 * R && fr < live;
+    const int x = 3 * fr + fc;
+    const double q0 = folds ? qb[own + x] : 0.0;
+    const double v0 = folds ? v_in[sb + own + x] : 0.0;
     double acc = 0.0;
     for (int k = 0; k < tiles; ++k) {
         const int buf = k % NBUF;
@@ -139,7 +155,8 @@ graded_step_f64_kernel(GradedArgs<double> a, const double* __restrict__ q_in,
         }
         if (k + NBUF < tiles) bar_arrive(BAR_EMPTY + buf, THREADS);
     }
-    if (folds) nbody::graded_euler(acc, q0, v0, a.dt, qo[x], vo[x]);
+    if (folds)
+        nbody::graded_euler(acc, q0, v0, a.dt, q_out[ob + x], v_out[ob + x]);
 }
 
 __global__ void __launch_bounds__(CHECK_THREADS)
@@ -185,19 +202,60 @@ extern "C" int graded_chunk_f64_launch(
     if (!nbody::graded_args_ok(mode, B, n, D, s0, s1)
         || (dist3 != nbody::DIST3_DSQRT && dist3 != nbody::DIST3_SQRT3))
         return static_cast<int>(cudaErrorInvalidValue);
-    const GradedArgs<double> a{m0, mh, fst, md2, others, {arr, arr2}, hit,
-                               flag, min_d2, q_snap, v_snap, mode, B, n, D,
-                               planet, G, dt, eps2, r2};
+    const GradedArgs<double> a = nbody::graded_args(
+        m0, mh, fst, md2, others, arr, arr2, hit, flag, min_d2, q_snap,
+        v_snap, mode, B, n, D, planet, G, dt, eps2, r2);
     const dim3 grid((n + R - 1) / R, B);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dist3 == nbody::DIST3_DSQRT)
         return nbody::graded_chunk(
-            graded_step_f64_kernel<nbody::DIST3_DSQRT>,
+            graded_step_f64_kernel<nbody::DIST3_DSQRT, false>,
             graded_check_f64_kernel, grid, THREADS, CHECK_THREADS, a, q, v,
             q2, v2, s0, s1, s);
     return nbody::graded_chunk(
-        graded_step_f64_kernel<nbody::DIST3_SQRT3>, graded_check_f64_kernel,
-        grid, THREADS, CHECK_THREADS, a, q, v, q2, v2, s0, s1, s);
+        graded_step_f64_kernel<nbody::DIST3_SQRT3, false>,
+        graded_check_f64_kernel, grid, THREADS, CHECK_THREADS, a, q, v, q2,
+        v2, s0, s1, s);
+}
+
+// One launch of a mesh rank (graded.cuh graded_rows_launch): step t of
+// the rows [r0, r0 + ni) of the state qv, kept in k blocks of ni =
+// ceil(n / k) rows, block r holding q then v of its rows in every
+// scenario row, (k, 2, B, ni, 3); the launch reads all of qv and writes
+// its rows to the same place of qv_out, after the checks of step t - 1 on
+// qv if `check`. With qv_out null, the checks of step t on qv alone. p1,
+// p2: the rows of P1 and P2 in P12 (-1 where absent), -1 in P3. The other
+// arguments are graded_chunk_f64_launch's. At k = 1 the state is one
+// block, and the launch is the one-device instantiation. Returns the
+// launch error, or cudaErrorInvalidValue without launching.
+extern "C" int graded_rows_f64_step(
+        const double* m0, const double* mh, const double* fst,
+        const double* md2, const long long* others, long long* arr,
+        long long* arr2, long long* hit, unsigned char* flag, double* min_d2,
+        double* q_snap, double* v_snap, int mode, int B, int n, int D,
+        int planet, int p1, int p2, int ni, int k, int dist3, double G,
+        double dt, double eps2, double r2, double* qv, double* qv_out,
+        int r0, int t, int check, void* stream) {
+    GradedArgs<double> a = nbody::graded_args(
+        m0, mh, fst, md2, others, arr, arr2, hit, flag, min_d2, q_snap,
+        v_snap, mode, B, n, D, planet, G, dt, eps2, r2);
+    if ((dist3 != nbody::DIST3_DSQRT && dist3 != nbody::DIST3_SQRT3)
+        || !nbody::graded_rows_args(a, p1, p2, ni, k, r0, t,
+                                    qv_out != nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long half = a.L.stride / 2;   // a block's q rows, then v's
+    using StepKernel = void (*)(GradedArgs<double>, const double*,
+                                const double*, double*, double*, int, int);
+    const bool dsqrt = dist3 == nbody::DIST3_DSQRT;
+    const StepKernel step =
+        k > 1 ? (dsqrt ? &graded_step_f64_kernel<nbody::DIST3_DSQRT, true>
+                       : &graded_step_f64_kernel<nbody::DIST3_SQRT3, true>)
+              : (dsqrt ? &graded_step_f64_kernel<nbody::DIST3_DSQRT, false>
+                       : &graded_step_f64_kernel<nbody::DIST3_SQRT3, false>);
+    return nbody::graded_rows_launch(
+        step, graded_check_f64_kernel, R, THREADS, CHECK_THREADS, a, qv,
+        qv + half, qv_out, qv_out ? qv_out + half : nullptr, t, check,
+        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fold_floor_f64_launch(const double* x, double* out,

@@ -160,6 +160,21 @@ def load() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int,                      # s0, s1
             ctypes.c_void_p,                                 # cudaStream_t
         ]
+    # graded_rows_*_step: the chunk's pointers from m0 to v_snap; (mode, B,
+    # n, D, planet, p1, p2, ni, k), dist3 in binary64, the reals as above;
+    # then the launch's qv, qv_out, r0, t, check and stream
+    for name, ints, reals in (("graded_rows_f64_step", 1, 4),
+                              ("graded_rows_dd_step", 0, 8)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            *[ctypes.c_void_p] * 12,
+            *[ctypes.c_int] * (9 + ints),
+            *[ctypes.c_double] * reals,
+            ctypes.c_void_p, ctypes.c_void_p,                # qv, qv_out
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,        # r0, t, check
+            ctypes.c_void_p,                                 # cudaStream_t
+        ]
     lib.graded_step_dd_info.restype = ctypes.c_int
     lib.graded_step_dd_info.argtypes = [
         ctypes.c_int, ctypes.c_void_p,                       # n, int out[10]

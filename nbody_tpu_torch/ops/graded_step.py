@@ -21,13 +21,26 @@ on a card, their plain versions on the CPU). Both compute the same bits:
 every op of the kernels is the plain loop's op in the same order
 (csrc/graded.cuh).
 
-The plain P1+P2 and Problem-3 chunks also serve the mesh
-(parallel/solver_sharded.py), which hands them its own `step` (the force
-of its rows through the kernel's cross form, then a gather; or the ordered
-ring over a body-sharded state), its own `take` (the planet's, asteroid's
-and devices' rows of a sharded state) and, for P1+P2, the `roles` of its
-rows when the scenarios are split across ranks. There is one copy of the
-graded checks.
+The mesh (parallel/solver_sharded.py) runs its binary64 and double-double
+steps through `graded_rows_chunk(mode, c, s0, s1, blocks, gather)`: a rank
+computes the force of its own rows [r0, r0 + ni) against every body,
+updates those rows, and one `gather` (an in-place all_gather over 'body')
+puts the ranks' rows together; every rank then checks the whole state. The
+state lies in the `Blocks` layout that the all_gather makes, (k, 2, B, ni,
+3): block r holds q and then v of the rows [r * ni, (r + 1) * ni) of every
+scenario row (`to_blocks`, `from_blocks`). On a CUDA tensor each step is
+one C call that launches the graded step kernel on the rank's rows (the
+one-device kernel, of which one device is the case k = 1) and one call of
+`gather`; a chunk ends with one check launch. On the CPU the plain
+version makes the same step in the same order: the rows' force through the
+cross form of kernel B1 or B4, their update, the gather, and the checks of
+`_p12_chunk_ref` or `_p3_chunk_ref`. Where the scenarios are split across
+ranks, the P1+P2 `roles` name the rows a rank holds.
+
+The plain P1+P2 and Problem-3 chunks also serve the float32 mesh, which
+hands them its own `step` (the ordered ring over a body-sharded state) and
+its own `take` (the planet's, asteroid's and devices' rows of a sharded
+state). There is one copy of the graded checks.
 
 The JAX package runs the same chunks as compiled scans
 (nbody_tpu/models/direct_sum.py `_p12_chunk`, `_p123_chunk`, `_p3_chunks`).
@@ -36,12 +49,14 @@ The JAX package runs the same chunks as compiled scans
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from . import ddfloat as ddf
-from .accel_dd import eps2_dd
+from .accel_dd import accel_dd, eps2_dd
 from .accel_f32 import eps2_f32
+from .accel_f64 import accel_f64
 from .forces import DIST3_CODES, sq_dist
 from .integrate import scalar, symplectic_euler_step, \
     symplectic_euler_step_dd
@@ -58,9 +73,11 @@ class Carry:
     P123 [P1, P2, P3_0, ...]. Constants are the config's (G, eps, dt) and
     r2, the planet radius squared in the state's representation (a pair
     (hi, lo) for double-double), and the binary64 force's dist3 form.
-    A double-double carry's real tensors have a trailing axis of 2."""
+    A double-double carry's real tensors have a trailing axis of 2.
+    For `graded_rows_chunk`, q holds the state in blocks (`to_blocks`) and
+    v is None."""
     q: torch.Tensor             # (B, n, 3) float64 or float32
-    v: torch.Tensor             # (B, n, 3)
+    v: torch.Tensor | None      # (B, n, 3)
     m0: torch.Tensor            # (B, n) base masses
     m_half: torch.Tensor        # (B, n) device half-masses
     fst: torch.Tensor           # (n_steps + 1,) oscillation table
@@ -251,7 +268,10 @@ def _p123_chunk_ref(c: Carry, s0: int, s1: int) -> None:
 _REF = {P12: _p12_chunk_ref, P3: _p3_chunk_ref, P123: _p123_chunk_ref}
 
 
-def _check(mode: int, c: Carry, s0: int, s1: int) -> None:
+def _check(mode: int, c: Carry, s0: int, s1: int,
+           blocks: Blocks | None = None) -> None:
+    """Refuse a carry the chunk does not take: c.q (B, n, 3), or in
+    `blocks` (k, 2, B, ni, 3) with c.v None."""
     if mode not in _REF:
         raise ValueError(f"unknown graded mode {mode!r}")
     dtype = c.q.dtype
@@ -259,14 +279,25 @@ def _check(mode: int, c: Carry, s0: int, s1: int) -> None:
         raise TypeError(f"graded_chunk takes a float64, float32 or "
                         f"double-double state, got {dtype}")
     tail = (2,) if is_dd(c.q) else ()
-    if c.q.dim() != 3 + len(tail) or c.q.shape[2:] != (3, *tail) \
-            or c.q.shape[0] < 1 or c.q.shape[1] < 1:
-        raise ValueError(f"graded_chunk takes q (B, n, 3), or (B, n, 3, 2) "
-                         f"double-double, B, n >= 1, got {tuple(c.q.shape)}")
-    B, n = c.q.shape[:2]
+    real = {}
+    if blocks is None:
+        if c.q.dim() != 3 + len(tail) or c.q.shape[2:] != (3, *tail) \
+                or c.q.shape[0] < 1 or c.q.shape[1] < 1:
+            raise ValueError(f"graded_chunk takes q (B, n, 3), or "
+                             f"(B, n, 3, 2) double-double, B, n >= 1, got "
+                             f"{tuple(c.q.shape)}")
+        B, n = c.q.shape[:2]
+        real["v"] = (c.v, (B, n, 3))
+    else:
+        B, n = c.q.shape[2] if c.q.dim() > 2 else 0, blocks.n
+        want = (blocks.k, 2, B, blocks.ni, 3, *tail)
+        if tuple(c.q.shape) != want or B < 1 or c.v is not None:
+            raise ValueError(f"graded_rows_chunk takes q in {blocks.k} "
+                             f"blocks, (k, 2, B, ni, 3) = {want}, and v "
+                             f"None, got q {tuple(c.q.shape)}")
     D = c.others.shape[0] - 1
-    real = {"v": (c.v, (B, n, 3)), "m0": (c.m0, (B, n)),
-            "m_half": (c.m_half, (B, n)), "fst": (c.fst, None)}
+    real.update(m0=(c.m0, (B, n)), m_half=(c.m_half, (B, n)),
+                fst=(c.fst, None))
     ints = {"others": (c.others, (D + 1,))}
     if mode == P3:
         ints["arr"] = (c.arr, (B,))
@@ -397,6 +428,180 @@ def graded_step_dd(mode: int, c: Carry, s0: int, s1: int) -> None:
 graded_step_f64.launches = 0
 graded_step_f32.launches = 0
 graded_step_dd.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Blocks:
+    """The mesh's split of n bodies over k body ranks: k blocks of ni =
+    ceil(n / k) rows, block r the rows [r * ni, (r + 1) * ni) cut at n
+    (the last blocks may be short or empty). `mine`: the blocks one call of
+    the step computes, the rank's own, or all k where one process stands in
+    for the k ranks (and nothing is gathered)."""
+    n: int
+    k: int
+    mine: tuple
+
+    @property
+    def ni(self) -> int:
+        return -(-self.n // self.k)
+
+    def rows(self, r: int) -> tuple:
+        """(first, end) of block r's real rows."""
+        r0 = min(r * self.ni, self.n)
+        return r0, min(r0 + self.ni, self.n)
+
+
+def to_blocks(q: torch.Tensor, v: torch.Tensor, k: int) -> torch.Tensor:
+    """The one-device state q, v (B, n, 3), or (B, n, 3, 2) double-double,
+    in k blocks: (k, 2, B, ni, 3[, 2]), block r holding the rows
+    [r * ni, (r + 1) * ni) of q and then of v, rows past n zero (the layout
+    that an all_gather of the ranks' blocks makes)."""
+    B, n = q.shape[:2]
+    ni = -(-n // k)
+    qv = q.new_zeros((2, B, k * ni) + tuple(q.shape[2:]))
+    qv[0, :, :n] = q
+    qv[1, :, :n] = v
+    return qv.unflatten(2, (k, ni)).movedim(2, 0).contiguous()
+
+
+def from_blocks(qv: torch.Tensor, n: int) -> tuple:
+    """The one-device (q, v) of n bodies from a state in blocks."""
+    x = qv.movedim(0, 2).flatten(2, 3)[:, :, :n]
+    return x[0].contiguous(), x[1].contiguous()
+
+
+def _rows_ref(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
+              gather, roles) -> None:
+    """The plain row-range chunk: each step, the force of the rows of
+    `blocks.mine` through the cross form of kernel B1 (or B4), their
+    update, `gather` of the blocks, then the plain chunk's checks on the
+    whole state."""
+    n, shape = blocks.n, c.q.shape
+    q, v = from_blocks(c.q, n)
+    ar = arith(q)
+    cross = functools.partial(accel_dd, eps=c.eps) if is_dd(q) else \
+        functools.partial(accel_f64, eps=c.eps, dist3_mode=c.dist3)
+
+    def step(cc, q, v, s):
+        out = q.new_zeros(shape)
+        for r in blocks.mine:
+            r0, r1 = blocks.rows(r)
+            if r1 > r0:
+                qr = q[:, r0:r1].contiguous()
+                qn, vn = ar.step(cc, qr, v[:, r0:r1], s,
+                                 force=lambda _, gm: cross(qr, q, gm))
+                out[r, 0, :, :r1 - r0] = qn
+                out[r, 1, :, :r1 - r0] = vn
+        if gather is not None:
+            gather(out)
+        return from_blocks(out, n)
+
+    whole = dataclasses.replace(c, q=q, v=v)
+    if mode == P12:
+        _p12_chunk_ref(whole, s0, s1, step=step, roles=roles)
+    else:
+        _p3_chunk_ref(whole, s0, s1, step=step)
+    for name in ("arr", "hit", "min_d2", "q_snap", "v_snap"):
+        setattr(c, name, getattr(whole, name))
+    c.q = to_blocks(whole.q, whole.v, blocks.k)
+
+
+def _launch_rows(fn, mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
+                 gather, roles) -> None:
+    """A C call a step on each block of `blocks.mine` (one launch of the
+    graded step kernel on its rows), `gather` after each step, and one
+    check launch; no host synchronisation."""
+    if c.q.device.type != "cuda":
+        raise ValueError(f"{fn.__name__} runs on cuda, not {c.q.device}")
+    from . import _build
+
+    lib = _build.load()
+    arr2 = c.arr if mode == P3 else c.arr.clone()
+    if is_dd(c.q):
+        launch = lib.graded_rows_dd_step
+        tail = (c.G, 0.0, c.dt, 0.0, *eps2_dd(c.eps), *c.r2)
+    else:
+        launch = lib.graded_rows_f64_step
+        tail = (DIST3_CODES[c.dist3], c.G, c.dt, c.eps * c.eps, c.r2)
+    ptr = lambda x: None if x is None else x.data_ptr()   # noqa: E731
+    p1, p2 = (-1 if r is None else r for r in roles)
+    ni = blocks.ni
+    head = (ptr(c.m0), ptr(c.m_half), ptr(c.fst), ptr(c.md2),
+            ptr(c.others), ptr(c.arr), ptr(arr2),
+            None if mode == P3 else ptr(c.hit),
+            ptr(c.hit) if mode == P3 else None, ptr(c.min_d2),
+            ptr(c.q_snap), ptr(c.v_snap), mode, c.q.shape[2], blocks.n,
+            c.others.shape[0] - 1, c.planet, p1, p2, ni, blocks.k, *tail)
+    bufs = (c.q, torch.zeros_like(c.q))
+    ptrs = [x.data_ptr() for x in bufs]
+    with torch.cuda.device(c.q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def call(src, dst, r, t, check):
+            rc = launch(*head, src, dst, r * ni, t, check, stream)
+            if rc != 0:
+                raise RuntimeError(f"{fn.__name__} kernel launch failed: "
+                                   f"CUDA error {rc}")
+
+        for t in range(s0 + 1, s1 + 1):
+            i = (t - s0 - 1) & 1
+            for r in blocks.mine:
+                call(ptrs[i], ptrs[i ^ 1], r, t, int(t > s0 + 1))
+            if gather is not None:
+                gather(bufs[i ^ 1])
+        last = (s1 - s0) & 1
+        call(ptrs[last], None, blocks.mine[0], s1, 0)
+    fn.launches += (s1 - s0) * len(blocks.mine) + 1
+    c.q = bufs[last]
+    if mode != P3 and s1 % 2:    # the checks of step p write arr[p & 1]
+        c.arr = arr2
+
+
+def graded_rows_chunk(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
+                      gather=None, roles: tuple | None = None) -> None:
+    """Advance a mesh rank's carry c from step s0 to s1 in driver `mode`
+    (P12 or P3; the mesh has no fused driver). c.q is the state in
+    `blocks` (`to_blocks`), float64 or double-double, and c.v None; every
+    other field is as `graded_chunk` has it.
+
+    Each step computes the rows of the blocks `blocks.mine` and then calls
+    gather(qv), which must fill the other blocks of qv in place (an
+    all_gather of the ranks' blocks); without a gather, mine must be every
+    block. roles = (P1's row, P2's row) in P12, either None where the
+    carry lacks it (default: P1 is row 0, P2 row 1 if there are two rows).
+    CUDA tensors run the graded step kernel of their representation on the
+    rows and add its launches to `graded_step_f64.launches` or
+    `graded_step_dd.launches`; CPU tensors run the plain version."""
+    B = c.q.shape[2] if c.q.dim() > 2 else 0
+    if mode == P12 and roles is None:
+        roles = (0, 1 if B == 2 else None)
+    if mode not in (P12, P3):
+        raise ValueError(f"graded_rows_chunk takes P12 or P3, got {mode!r}")
+    if c.q.dtype != torch.float64:
+        raise TypeError(f"graded_rows_chunk takes a float64 or double-double "
+                        f"state, got {c.q.dtype}")
+    mine = blocks.mine
+    if blocks.k < 1 or not mine or len(set(mine)) != len(mine) \
+            or not all(0 <= r < blocks.k for r in mine) \
+            or len(mine) != (blocks.k if gather is None else 1):
+        raise ValueError(f"graded_rows_chunk takes its rank's block and a "
+                         f"gather, or all k blocks without one, got {blocks}"
+                         f" and gather {gather!r}")
+    if mode == P3:
+        if roles is not None:
+            raise ValueError(f"P3 rows have no roles, got {roles}")
+        roles = (None, None)
+    elif len(roles) != 2 or roles[0] == roles[1] \
+            or sum(r is not None for r in roles) != B \
+            or not all(r is None or 0 <= r < B for r in roles):
+        raise ValueError(f"P12 roles name the carry's {B} rows, got {roles}")
+    _check(mode, c, s0, s1, blocks)
+    if c.q.device.type == "cpu":
+        _rows_ref(mode, c, s0, s1, blocks, gather, roles)
+    elif is_dd(c.q):
+        _launch_rows(graded_step_dd, mode, c, s0, s1, blocks, gather, roles)
+    else:
+        _launch_rows(graded_step_f64, mode, c, s0, s1, blocks, gather, roles)
 
 
 def graded_chunk(mode: int, c: Carry, s0: int, s1: int) -> None:

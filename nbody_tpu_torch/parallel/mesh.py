@@ -108,12 +108,19 @@ def mesh_sizes(axes: dict, world: int) -> tuple[int, int]:
 def make_mesh(axes: dict, device: str = "cuda"):
     """A DeviceMesh of the default process group (opened here if needed),
     shaped (scen, body) from {axis_name: size} with
-    mesh_dim_names=('scen', 'body')."""
+    mesh_dim_names=('scen', 'body'), its axes' communicators open."""
     from torch.distributed.device_mesh import init_device_mesh
 
     dev = init_process_group(device)
     shape = mesh_sizes(axes, dist.get_world_size())
-    return init_device_mesh(dev.type, shape, mesh_dim_names=AXES)
+    mesh = init_device_mesh(dev.type, shape, mesh_dim_names=AXES)
+    # open each axis's communicator now, with one tiny all_reduce: a
+    # group's first collective sets it up, which under NCCL can take a
+    # second, and would otherwise fall inside the solve's first chunk
+    for name in AXES:
+        dist.all_reduce(torch.zeros(1, device=mesh_device(mesh)),
+                        group=mesh.get_group(name))
+    return mesh
 
 
 def check_mesh(mesh) -> None:

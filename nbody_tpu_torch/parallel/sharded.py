@@ -62,6 +62,14 @@ def all_gather(x: torch.Tensor, group, k: int) -> torch.Tensor:
     return out
 
 
+def gather_blocks(x: torch.Tensor, group, me: int) -> None:
+    """Fill the blocks x[r] (x (k, ...), contiguous) of every rank r of
+    the group from their owners, in place: one all_gather whose send buffer
+    is this rank's block x[me] (the output as the blocks' concatenation,
+    the one form every backend takes)."""
+    _all_gather(x.view(-1), x[me].view(-1), group=group)
+
+
 def ring_shift(tensors: list, group, me: int, k: int) -> list:
     """One hop of the ring: this rank's tensors go to rank me + 1 of the
     group and those of rank me - 1 come back (JAX ppermute

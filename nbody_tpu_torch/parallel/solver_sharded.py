@@ -10,14 +10,18 @@ spreading the graded scenario over its two GPUs (hw5.cu:564-588).
     only at scen = 1, where the rows share ranks, as in the JAX package.
   * 'body' — in binary64 ('f64', and 'e64', 'dd', 'ddp', 'dd+', which the
     port runs as binary64) and in double-double ('tf3') every rank holds
-    the whole state and computes the force of its own rows [r0, r1)
-    against all the sources, through the cross form of kernel B1 or B4;
-    one all_gather over 'body' puts the accelerations together, and every
-    rank then makes the same update and checks (the JAX e64 design,
-    solver_sharded.py:381-470). A row's serial fold does not depend on
-    which rows share its launch, so the answers are bitwise those of the
-    one-device solve, on every mesh shape and for every n (uneven row
-    blocks are gathered padded). `tile` does not apply.
+    the whole state, in the blocks that an all_gather over 'body' makes
+    (ops/graded_step `Blocks`: block r holds q and v of the rows
+    [r * ni, (r + 1) * ni), ni = ceil(n / body)). A step of a rank is
+    ops/graded_step `graded_rows_chunk`: the force of its own rows against
+    every body, the update of those rows, one in-place all_gather of the
+    blocks, and the checks of the whole state, which every rank makes
+    alike (the JAX e64 design, solver_sharded.py:381-470). On a card that
+    is one launch of the graded step kernel and one NCCL call a step; a
+    card whose kernel fails raises. A row's serial fold does not depend on
+    which rows share its launch, and its update reads only the row, so the
+    answers are bitwise those of the one-device solve, on every mesh shape
+    and for every n (the last block padded). `tile` does not apply.
     In 'f32' the bodies themselves are split over 'body' (padded with
     zero-mass bodies to a multiple of body * tile), the force is the
     ordered ring (parallel/sharded.py), and the planet's, asteroid's and
@@ -26,14 +30,14 @@ spreading the graded scenario over its two GPUs (hw5.cu:564-588).
     Bitwise the same on every mesh shape for one tile, and bitwise the
     one-device 'f32' at tile 128.
 
-The graded checks are the plain chunks' (ops/graded_step `_p12_chunk_ref`,
-`_p3_chunk_ref`): the mesh hands them its step and its row taker, and they
-stay eager PyTorch ops, on the card too (the one-launch graded step
-kernels have no mesh form).
+The 'f32' checks are the plain chunks' (ops/graded_step `_p12_chunk_ref`,
+`_p3_chunk_ref`), which the mesh hands its step and its row taker; they
+are eager PyTorch ops, on the card too.
 
 Checkpoints (`checkpoint_path`) are written by rank 0 and read by every
-rank, in the one-device layout (the real bodies only), and a run resumes on
-any mesh shape with the same bits. Their fingerprint is the one-device
+rank, in the one-device layout (the real bodies only; the blocks are
+converted at chunk boundaries), and a run resumes on any mesh shape with
+the same bits. Their fingerprint is the one-device
 one with ':mesh' (and ':tile=T' in 'f32') added, so a one-device run and a
 mesh run do not take each other's files.
 """
@@ -53,11 +57,11 @@ from ..io import Scene
 from ..models import direct_sum as ds
 from ..ops.accel_dd import accel_dd
 from ..ops.accel_f64 import accel_f64
-from ..ops.graded_step import _p3_chunk_ref, _p12_chunk_ref, arith, \
-    take_rows
+from ..ops.graded_step import P3, P12, Blocks, _p3_chunk_ref, \
+    _p12_chunk_ref, arith, from_blocks, graded_rows_chunk, to_blocks
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from .mesh import axis, mesh_device
-from .sharded import TILE, all_gather, ring_accel_ordered
+from .sharded import TILE, all_gather, gather_blocks, ring_accel_ordered
 
 F32 = torch.float32
 
@@ -67,8 +71,9 @@ class Layout:
 
     Replicated (binary64, double-double): all n bodies, and the force rows
     [r0, r1) of an equal split (ceil(n / k) a rank, fewer or none at the
-    end). Sharded (float32): n padded to n_pad, a multiple of k * tile,
-    and the rows [r0, r1) of n_pad / k bodies."""
+    end); the graded solve keeps them in `blocks`. Sharded (float32): n
+    padded to n_pad, a multiple of k * tile, and the rows [r0, r1) of
+    n_pad / k bodies."""
 
     def __init__(self, mesh, n: int, dtype, tile: int | None = None):
         _, self.si, self.S = axis(mesh, "scen")
@@ -87,6 +92,48 @@ class Layout:
             self.n_pad, self.ni = n, -(-n // self.k)
             self.r0 = min(self.bi * self.ni, n)
             self.r1 = min(self.r0 + self.ni, n)
+            self.blocks = Blocks(n, self.k, (self.bi,))
+
+    def advance(self, mode: int, c, s0: int, s1: int,
+                roles=None) -> None:
+        """Steps s0+1..s1 of this rank's graded carry: the row-range chunk
+        with an in-place all_gather over 'body' (replicated), or the plain
+        chunk whose step's force is the ordered ring, with the sharded row
+        taker (sharded)."""
+        if not self.sharded:
+            graded_rows_chunk(mode, c, s0, s1, self.blocks, functools.partial(
+                gather_blocks, group=self.group, me=self.bi), roles)
+            return
+        ar, force = arith(c.q), self.force(eps=c.eps)
+
+        def step(c, q, v, s):
+            return ar.step(c, q, v, s, force=force)
+
+        if mode == P12:
+            _p12_chunk_ref(c, s0, s1, step=step, take=self.take(),
+                           roles=roles)
+        else:
+            _p3_chunk_ref(c, s0, s1, step=step, take=self.take())
+
+    def carry(self, c) -> None:
+        """Put this rank's carry c, its (q, v) in the one-device layout of
+        its bodies, in the layout `advance` takes (in place)."""
+        if not self.sharded:
+            c.q, c.v = to_blocks(c.q, c.v, self.k), None
+
+    def state(self, c) -> tuple:
+        """(q, v) of this rank's carry in the one-device layout of its
+        bodies."""
+        return (c.q, c.v) if self.sharded else from_blocks(c.q, self.n)
+
+    def first_row(self, c) -> None:
+        """Keep only scenario row 0 of the carry's state (the P2 early
+        exit)."""
+        c.m0, c.m_half = c.m0[:1], c.m_half[:1]
+        if self.sharded:
+            c.q, c.v = c.q[:1], c.v[:1]
+        else:
+            c.q = c.q[:, :, :1].contiguous()
 
     def local(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """This rank's part of a whole tensor of the real bodies along
@@ -140,11 +187,9 @@ class Layout:
         return force
 
     def take(self):
-        """The plain chunks' row taker: local indexing, or (sharded) the
-        exact extraction of rows idx from the body-sharded q (B, ni, 3):
-        each rank adds the rows it owns, the others zeros."""
-        if not self.sharded:
-            return take_rows
+        """The plain chunks' row taker of the sharded layout: the exact
+        extraction of rows idx from the body-sharded q (B, ni, 3): each
+        rank adds the rows it owns, the others zeros."""
         r0, ni, group = self.r0, self.ni, self.group
 
         def take(q: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -225,16 +270,13 @@ def run_problems_12_sharded(scene: Scene, fst: np.ndarray, cfg: SimConfig,
     for name in ("q", "v", "m0", "m_half"):
         setattr(c, name, L.local(getattr(full, name)[mine]))
     c.q_snap, c.v_snap = L.local(full.q_snap), L.local(full.v_snap)
-    ar = arith(full.q)
-    force = L.force(eps=cfg.eps, dist3=full.dist3)
-
-    def step(c, q, v, s):
-        return ar.step(c, q, v, s, force=force)
+    L.carry(c)
 
     def gather() -> tuple:
         """The whole carry from every rank's part: (q, v, the rest by
         name), in the one-device layout."""
-        piece = {"si": L.si, "bi": L.bi, "q": _host(c.q), "v": _host(c.v)}
+        q, v = L.state(c)
+        piece = {"si": L.si, "bi": L.bi, "q": _host(q), "v": _host(v)}
         if 0 in mine:
             piece["min_d2"] = _host(c.min_d2)
         if 1 in mine or (1 not in rows and L.si == 0):
@@ -259,10 +301,9 @@ def run_problems_12_sharded(scene: Scene, fst: np.ndarray, cfg: SimConfig,
         # the P2 early exit, where the rows share ranks (one host read)
         if L.S == 1 and len(rows) == 2 and int(c.hit) != -2:
             rows = mine = [0]
-            c.q, c.v, c.m0, c.m_half = (x[:1] for x in
-                                        (c.q, c.v, c.m0, c.m_half))
+            L.first_row(c)
         if mine:
-            _p12_chunk_ref(c, s0, s1, step=step, take=L.take(), roles=(
+            L.advance(P12, c, s0, s1, roles=(
                 mine.index(0) if 0 in mine else None,
                 mine.index(1) if 1 in mine else None))
         if dtype == F32:
@@ -326,15 +367,12 @@ def run_problem_3_sharded(scene: Scene, p12: ds.P12Result, fst: np.ndarray,
     c = dataclasses.replace(full, arr=full.arr[mine], hit=full.hit[mine])
     for name in ("q", "v", "m0", "m_half"):
         setattr(c, name, L.local(getattr(full, name)[mine]))
-    ar = arith(full.q)
-    force = L.force(eps=cfg.eps, dist3=full.dist3)
-
-    def step(c, q, v, s):
-        return ar.step(c, q, v, s, force=force)
+    L.carry(c)
 
     def gather() -> list:
-        return _gathered({"si": L.si, "bi": L.bi, "q": _host(c.q),
-                          "v": _host(c.v), "hit": _host(c.hit)})
+        q, v = L.state(c)
+        return _gathered({"si": L.si, "bi": L.bi, "q": _host(q),
+                          "v": _host(v), "hit": _host(c.hit)})
 
     def whole(pieces: list, key: str, dim: int) -> np.ndarray:
         """Scenarios in idx order from the scen rows' parts."""
@@ -352,7 +390,7 @@ def run_problem_3_sharded(scene: Scene, p12: ds.P12Result, fst: np.ndarray,
         if not int(undecided):
             break
         if live:
-            _p3_chunk_ref(c, s0, s1, step=step, take=L.take())
+            L.advance(P3, c, s0, s1)
         if dtype == F32:
             L.finite(c.q, context=f"in P3 after step {s1}")
         if path is not None:
