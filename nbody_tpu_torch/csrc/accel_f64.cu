@@ -21,93 +21,72 @@
 // Layout: rows qi (B, ni, 3) against sources qj (B, nj, 3) with gmj (B, nj)
 // = fl(G * m_eff), a (B, ni, 3), all contiguous float64. The self form is
 // qi = qj. The grid is (ceil(ni / R), B): a block owns R rows of one
-// scenario b, and scenarios never mix. For each tile of TJ sources, in
-// ascending order, the block stages q_j and gm_j in shared memory, all
-// threads compute the R x TJ pair terms in parallel into shared memory, and
-// then 3R threads (one per row and component) fold their row's TJ terms
-// serially into a register. This is the split the TPU kernel's sub_j stacks
-// make. A ragged last tile is masked in the fold, so any ni and nj work
-// unpadded. A row's fold reads only its own position and the sources, so
-// its bits do not depend on which rows share the launch: the row blocks of
-// a mesh (parallel/solver_sharded.py), each launched on its own, give the
+// scenario b, and scenarios never mix. Its force is the binary64 block
+// force that the graded step B1' and simulate's step run too
+// (f64_force.cuh): R * TJ compute threads write each tile's pair terms
+// into a ring of shared term tiles, and one fold warp adds them in
+// ascending j, lane (row, component), handed over by named barriers. A
+// ragged last tile is masked, so any ni and nj work unpadded. A row's fold
+// reads only its own position and the sources, so its bits do not depend
+// on which rows share the launch or on the geometry: the row blocks of a
+// mesh (parallel/solver_sharded.py), each launched on its own, give the
 // self form's bits.
 //
-// Bound: the fp64 pipe (each pair costs one sqrt and three divisions, which
-// Hopper runs as multi-instruction sequences) and the latency of the serial
-// fold, which no reassociation may shorten. wgmma and TMA do not apply:
-// there is no fp64 matrix product here and the tiles are a few KB. Speed is
-// later work; this kernel is the simple, right one.
+// The geometry is F64Block, 4 rows a block, so that a thousand rows
+// (simulate's n = 1024, the graded batch's B = 2, the mesh's 512-row
+// cross form) make 256 blocks for the 132 SMs and the fold's latency is
+// paid in parallel.
+//
+// Bound: the fp64 pipe (40 fp64 instructions a pair in the SASS, one
+// square root and one reciprocal among them: the three divisions by d3
+// share the reciprocal, forces.cuh div_rn_with, with __ddiv_rn's bits)
+// and the latency of the serial fold, which no reassociation may shorten.
+// wgmma and TMA do not apply: there is no fp64 matrix product here and the
+// tiles are a few KB.
 
 #include <cuda_runtime.h>
 
-#include "forces.cuh"
+#include "f64_force.cuh"
 
 namespace {
 
-constexpr int R = 16;         // rows i per block
-constexpr int TJ = 64;        // columns j per tile
-constexpr int THREADS = 256;  // R * TJ / THREADS = 4 pair terms per thread
-static_assert(THREADS >= 4 * TJ, "one staging load per thread");
-static_assert(THREADS >= 3 * R, "one fold thread per row and component");
+using Geo = nbody::F64Block;
 
 // dist3: the form of d2^1.5 (forces.cuh), a template argument, so the
 // dsqrt instantiation is the same code whatever the other form costs
 template <int dist3>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
 accel_f64_kernel(const double* __restrict__ qi,
                  const double* __restrict__ qj, const double* __restrict__ gm,
                  double* __restrict__ a, int ni, int nj, double eps2) {
-    __shared__ double s_qj[3][TJ];
-    __shared__ double s_gm[TJ];
-    __shared__ double s_qi[3][R];
-    __shared__ double s_term[3][R][TJ + 1];  // +1: fewer bank conflicts
+    __shared__ typename Geo::Smem sm;
 
-    const int b = blockIdx.y;
-    const int i0 = blockIdx.x * R;
-    const int tid = threadIdx.x;
-    const double* qib = qi + static_cast<size_t>(b) * ni * 3;
-    const double* qb = qj + static_cast<size_t>(b) * nj * 3;
-    const double* gb = gm + static_cast<size_t>(b) * nj;
-
-    if (tid < 3 * R) {
-        const int r = tid / 3, c = tid % 3;
-        if (i0 + r < ni)
-            s_qi[c][r] = qib[static_cast<size_t>(i0 + r) * 3 + c];
+    const int b = blockIdx.y, i0 = blockIdx.x * Geo::R;
+    const int live = min(Geo::R, ni - i0);
+    const size_t rows = (static_cast<size_t>(b) * ni + i0) * 3;
+    nbody::f64_rows_qi<Geo>(qi + rows, live, sm);
+    if (threadIdx.x < Geo::NC) {
+        const nbody::F64Table sources{qj + static_cast<size_t>(b) * nj * 3,
+                                      gm + static_cast<size_t>(b) * nj};
+        nbody::f64_rows_terms<Geo, dist3>(sources, nj, live, eps2, sm);
+        return;
     }
-    // fold thread: component fc of row fr
-    const int fc = tid / R, fr = tid % R;
-    double acc = 0.0;
+    int x;
+    const bool folds = nbody::f64_fold_lane<Geo>(live, x);
+    const double acc = nbody::f64_rows_fold<Geo>(nj, folds, sm);
+    if (folds) a[rows + x] = acc;
+}
 
-    for (int j0 = 0; j0 < nj; j0 += TJ) {
-        const int cols = min(TJ, nj - j0);
-        __syncthreads();  // the previous tile's terms are folded
-        if (tid < 3 * TJ) {
-            const int c = tid / TJ, jj = tid % TJ;
-            if (jj < cols)
-                s_qj[c][jj] = qb[static_cast<size_t>(j0 + jj) * 3 + c];
-        } else if (tid < 4 * TJ) {
-            const int jj = tid - 3 * TJ;
-            if (jj < cols) s_gm[jj] = gb[j0 + jj];
-        }
-        __syncthreads();
-
-        for (int p = tid; p < R * TJ; p += THREADS) {
-            const int r = p / TJ, jj = p % TJ;
-            if (i0 + r >= ni || jj >= cols) continue;
-            nbody::b1_pair_term<dist3>(
-                s_qj[0][jj], s_qj[1][jj], s_qj[2][jj], s_gm[jj], s_qi[0][r],
-                s_qi[1][r], s_qi[2][r], eps2, s_term[0][r][jj],
-                s_term[1][r][jj], s_term[2][r][jj]);
-        }
-        __syncthreads();
-
-        if (tid < 3 * R) {
-            for (int jj = 0; jj < cols; ++jj)
-                acc = __dadd_rn(acc, s_term[fc][fr][jj]);
-        }
-    }
-    if (tid < 3 * R && i0 + fr < ni)
-        a[(static_cast<size_t>(b) * ni + i0 + fr) * 3 + fc] = acc;
+// The pair term's division (forces.cuh div_rn_with, its reciprocal made
+// once) beside __ddiv_rn on the same operands
+__global__ void __launch_bounds__(256)
+div_probe_kernel(const double* __restrict__ n, const double* __restrict__ d,
+                 double* __restrict__ want, double* __restrict__ got,
+                 int count) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= count) return;
+    want[i] = __ddiv_rn(n[i], d[i]);
+    got[i] = nbody::div_rn_with(n[i], d[i], nbody::rcp_for_div(d[i]));
 }
 
 }  // namespace
@@ -119,17 +98,36 @@ extern "C" int accel_f64_launch(const double* qi, const double* qj,
                                 const double* gm, double* a, int B, int ni,
                                 int nj, double eps2, int dist3,
                                 void* stream) {
-    if (B <= 0 || B > 65535 || ni <= 0 || nj <= 0)  // B rides gridDim.y
+    if (B <= 0 || B > 65535 || ni <= 0 || nj <= 0  // B rides gridDim.y
+        || (dist3 != nbody::DIST3_DSQRT && dist3 != nbody::DIST3_SQRT3))
         return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((ni + R - 1) / R, B);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const dim3 grid((ni + Geo::R - 1) / Geo::R, B);
     if (dist3 == nbody::DIST3_DSQRT)
-        accel_f64_kernel<nbody::DIST3_DSQRT><<<grid, THREADS, 0, s>>>(
-            qi, qj, gm, a, ni, nj, eps2);
-    else if (dist3 == nbody::DIST3_SQRT3)
-        accel_f64_kernel<nbody::DIST3_SQRT3><<<grid, THREADS, 0, s>>>(
-            qi, qj, gm, a, ni, nj, eps2);
+        accel_f64_kernel<nbody::DIST3_DSQRT>
+            <<<grid, Geo::THREADS, 0, s>>>(qi, qj, gm, a, ni, nj, eps2);
     else
-        return static_cast<int>(cudaErrorInvalidValue);
+        accel_f64_kernel<nbody::DIST3_SQRT3>
+            <<<grid, Geo::THREADS, 0, s>>>(qi, qj, gm, a, ni, nj, eps2);
     return static_cast<int>(cudaGetLastError());
+}
+
+// want[i] = __ddiv_rn(n[i], d[i]) and got[i] the pair term's division of
+// the same operands, i < count: chip_smoke.py phase 2 holds them bitwise
+// equal. Returns the launch error, or cudaErrorInvalidValue for count < 1.
+extern "C" int div_probe_launch(const double* n, const double* d,
+                                double* want, double* got, int count,
+                                void* stream) {
+    if (count < 1) return static_cast<int>(cudaErrorInvalidValue);
+    div_probe_kernel<<<(count + 255) / 256, 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(n, d, want, got,
+                                                            count);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// What the card says of B1's dsqrt instantiation: f64_force.cuh
+// f64_kernel_info.
+extern "C" int accel_f64_info(int* out) {
+    return nbody::f64_kernel_info<Geo>(
+        accel_f64_kernel<nbody::DIST3_DSQRT>, out);
 }

@@ -19,7 +19,7 @@
 // Bound: the fp64 pipe. A pair is 333 fp64 instructions in the SASS
 // (scripts/sass_count.py): the pair term 309 (dd.cuh: three subtractions,
 // four squares and products, three sums, a root, a product and a division
-// in double-double, three products), seven times kernel B1's 46, and the
+// in double-double, three products), eight times kernel B1's 40, and the
 // fold 8 a term and row component, all of it issued by the one fold warp.
 // wgmma and TMA do not apply: there is no fp64 matrix product and a tile
 // is a few KB.

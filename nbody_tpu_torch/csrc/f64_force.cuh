@@ -1,0 +1,188 @@
+// The block-level force of the binary64 kernels: kernel B1 (accel_f64.cu),
+// the graded step B1' (graded_step_f64.cu) and simulate's step
+// (sim_step_f64.cu). A block computes the accelerations of R rows of one
+// scenario row, each component folded over ascending j, bit for bit what
+// kernel B1's plain twin computes (forces.cuh b1_pair_term, then
+// acc = __dadd_rn(acc, term) for j = 0, 1, ..., n-1 from acc = +0).
+//
+// Warp specialised. The block walks the sources in TJ-wide tiles. Its
+// R * TJ compute threads each take one (row, column) pair of every tile and
+// write the pair's three terms into a ring of NBUF shared term tiles; one
+// fold warp takes the tiles in order, and its lane (row, component) adds a
+// tile's terms in ascending j into a register. Named barriers hand the term
+// tiles over (full[buf] once the compute threads wrote tile buf, empty[buf]
+// once the fold warp folded it), so the fold of tile k overlaps the terms
+// of the tiles after it and no barrier stops the whole block.
+//
+// The sources come from an accessor (Src), so that each caller gives them
+// as it has them: a table of positions and gm_j (B1 and simulate's step;
+// F64Table below), or positions in the mesh's row blocks with gm_j formed
+// from the masses a pair (B1'; graded_step_f64.cu).
+//
+// Bound: the fp64 pipe and the fold's latency. A pair costs 40 fp64
+// instructions in the SASS (scripts/sass_count.py), a square root and one
+// reciprocal that its three divisions share among them, which the compute
+// threads issue; a row component is a chain of n dependent adds (about 9.5
+// cycles each on the card, chip_smoke.py phase 2's fold floor), which no
+// reassociation may shorten, run in parallel over the lanes of the fold
+// warp and over the blocks an SM holds. The binary64 paths run a few
+// thousand rows at most (the graded batch's B <= 2 and simulate at
+// n = 1024, the mesh's 512-row cross form), so blocks of few rows fill the
+// SMs and the fold's latency is paid in parallel: one geometry, F64Block.
+// wgmma and TMA do not apply: there is no fp64 matrix product here and a
+// tile is a few KB.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "blocks.cuh"
+#include "forces.cuh"
+
+namespace nbody {
+
+// R rows a block, TJ columns a tile, NBUF term tiles in the ring, MINB
+// blocks an SM asked of ptxas
+template <int R_, int TJ_, int NBUF_, int MINB_>
+struct F64Geometry {
+    static constexpr int R = R_, TJ = TJ_, NBUF = NBUF_, MINB = MINB_;
+    static constexpr int NC = R * TJ;          // compute threads
+    static constexpr int THREADS = NC + 32;    // and one fold warp
+    // named barriers: term tile buf written (FULL + buf), folded (EMPTY +
+    // buf)
+    static constexpr int BAR_FULL = 1, BAR_EMPTY = 1 + NBUF;
+    static_assert(NC % 32 == 0, "whole warps");
+    static_assert(3 * R <= 32, "one fold lane per row and component");
+    static_assert(THREADS <= 1024 && BAR_EMPTY + NBUF <= 16,
+                  "block, barrier limits");
+    struct Smem {
+        double qi[3][R];
+        double term[NBUF][3][R][TJ + 1];   // +1: no bank conflicts
+    };
+};
+
+// 4 rows a block, 256 blocks a scenario row of 1024 bodies. At n = 16384
+// rows, 8 rows a block with two a compute thread was 12% faster on an
+// "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md); no binary64 path
+// runs that many rows.
+using F64Block = F64Geometry<4, 64, 4, 2>;
+
+// Kernel B1's and simulate's sources: positions q (n, 3) and gm (n,), read
+// a pair (the L1 cache holds a tile)
+struct F64Table {
+    const double* __restrict__ q;
+    const double* __restrict__ gm;
+    struct Cursor {};
+    __device__ __forceinline__ Cursor cursor(int) const { return {}; }
+    __device__ __forceinline__ const double* pos(Cursor&, int j) const {
+        return q + 3LL * j;
+    }
+    __device__ __forceinline__ double gm_of(int j) const { return gm[j]; }
+};
+
+__device__ __forceinline__ void f64_bar_sync(int id, int count) {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void f64_bar_arrive(int id, int count) {
+    asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// The block force of the `live` rows at qi (R at most, (live, 3)) against
+// the n sources of src, in three parts: every thread of the block calls
+// f64_rows_qi; then the compute threads (threadIdx.x < NC) f64_rows_terms,
+// and the fold warp f64_rows_fold.
+
+// The block's rows into shared memory (a row past `live` reads as 0)
+template <class Geo>
+__device__ __forceinline__ void f64_rows_qi(const double* __restrict__ qi,
+                                            int live,
+                                            typename Geo::Smem& sm) {
+    const int tid = threadIdx.x;
+    if (tid < 3 * Geo::R) {
+        const int r = tid / 3, c = tid % 3;
+        sm.qi[c][r] = r < live ? qi[3 * r + c] : 0.0;
+    }
+    __syncthreads();
+}
+
+// A compute thread: row g against column jj of every tile, into the term
+// ring
+template <class Geo, int dist3, class Src>
+__device__ __forceinline__ void f64_rows_terms(const Src& src, int n,
+                                               int live, double eps2,
+                                               typename Geo::Smem& sm) {
+    constexpr int TJ = Geo::TJ, NBUF = Geo::NBUF;
+    const int g = threadIdx.x / TJ, jj = threadIdx.x % TJ;
+    const int tiles = (n + TJ - 1) / TJ;
+    auto cur = src.cursor(jj);
+    const double xi = sm.qi[0][g], yi = sm.qi[1][g], zi = sm.qi[2][g];
+    const bool row_live = g < live;
+    for (int k = 0; k < tiles; ++k) {
+        const int buf = k % NBUF;
+        if (k >= NBUF) f64_bar_sync(Geo::BAR_EMPTY + buf, Geo::THREADS);
+        const int j = k * TJ + jj;
+        if (row_live && j < n) {
+            const double* qj = src.pos(cur, j);
+            b1_pair_term<dist3>(qj[0], qj[1], qj[2], src.gm_of(j), xi, yi,
+                                zi, eps2, sm.term[buf][0][g][jj],
+                                sm.term[buf][1][g][jj],
+                                sm.term[buf][2][g][jj]);
+        }
+        f64_bar_arrive(Geo::BAR_FULL + buf, Geo::THREADS);
+    }
+}
+
+// Whether this fold-warp thread folds a row component of one of the
+// block's `live` rows; x: the index row * 3 + component from the block's
+// first row
+template <class Geo>
+__device__ __forceinline__ bool f64_fold_lane(int live, int& x) {
+    const int lane = static_cast<int>(threadIdx.x) - Geo::NC, fr = lane / 3;
+    x = 3 * fr + lane % 3;
+    return lane < 3 * Geo::R && fr < live;
+}
+
+// The fold warp: lane (row, component) adds the component's n terms over
+// ascending j from +0 and returns the sum where `folds` (f64_fold_lane)
+template <class Geo>
+__device__ __forceinline__ double f64_rows_fold(int n, bool folds,
+                                                typename Geo::Smem& sm) {
+    constexpr int TJ = Geo::TJ, NBUF = Geo::NBUF;
+    const int lane = threadIdx.x - Geo::NC, fr = lane / 3, fc = lane % 3;
+    const int tiles = (n + TJ - 1) / TJ;
+    double acc = 0.0;
+    for (int k = 0; k < tiles; ++k) {
+        const int buf = k % NBUF;
+        const int cols = min(TJ, n - k * TJ);
+        f64_bar_sync(Geo::BAR_FULL + buf, Geo::THREADS);
+        if (folds) {
+            const double* term = sm.term[buf][fc][fr];
+#pragma unroll 8
+            for (int jj = 0; jj < cols; ++jj) acc = __dadd_rn(acc, term[jj]);
+        }
+        if (k + NBUF < tiles)
+            f64_bar_arrive(Geo::BAR_EMPTY + buf, Geo::THREADS);
+    }
+    return acc;
+}
+
+// What the card says of a kernel of geometry Geo: out = {registers, local
+// bytes, threads, resident blocks an SM, rows a block, columns a tile,
+// NBODY_SHARED_RCP (forces.cuh)}. Returns the CUDA error, or 0.
+template <class Geo, class Kernel>
+int f64_kernel_info(Kernel* kernel, int* out) {
+    cudaFuncAttributes attr;
+    int blocks = 0;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, kernel, Geo::THREADS, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int info[7] = {attr.numRegs, static_cast<int>(attr.localSizeBytes),
+                         Geo::THREADS, blocks, Geo::R, Geo::TJ,
+                         NBODY_SHARED_RCP};
+    for (int i = 0; i < 7; ++i) out[i] = info[i];
+    return 0;
+}
+
+}  // namespace nbody

@@ -17,17 +17,13 @@
 // or sqrt3, one instantiation each).
 //
 // Layout: a block owns R rows of one scenario row b (grid ceil(n / R) x B;
-// at n = 1024 that is 256 blocks a row, about two per SM). It is warp
-// specialised. R * TJ compute threads, one per (row, column) of a TJ-wide
-// source tile, write the tile's pair terms into a ring of NBUF shared term
-// tiles; one fold warp takes the tiles in order, and its lane (row,
-// component) adds a tile's TJ terms in ascending j into a register, the
-// serial order the contract fixes. The two sides hand the tiles over with
-// named barriers (full[buf], empty[buf]): the fold of tile k overlaps the
-// terms of the tiles after it, and no barrier stops the whole block. The
-// fold lane then applies the Euler update to its component. B1 put 16
-// rows in a 256-thread block (64 blocks at B = 1), three barriers a tile,
-// and let 208 of its threads idle while 48 folded.
+// at n = 1024 that is 256 blocks a row, about two per SM). Its force is
+// the binary64 block force (f64_force.cuh, geometry F64Block): R * TJ
+// compute threads write a tile's pair terms into a ring of NBUF shared
+// term tiles, and one fold warp, lane (row, component), adds them in
+// ascending j into a register, the serial order the contract fixes; gm_j
+// is formed from the masses a pair. The fold lane then applies the Euler
+// update to its component. Kernel B1 runs on the same block force.
 //
 // The mesh, the row-range form: a launch takes the rows [r0, r0 + ni)
 // of a state kept in k blocks of ni rows (blocks.cuh, the layout the
@@ -46,58 +42,64 @@
 // Bound: the fold's latency and the fp64 pipe. Each row component is a
 // chain of n dependent fp64 adds, which no reassociation may shorten (at
 // n = 1024 about 5 us on the card, chip_smoke.py phase 2's fold probe);
-// the n^2 pair terms take 46 fp64 instructions each (2.8 us at the fp64
-// issue rate), a third of them in one sqrt and three divisions. A step
+// the n^2 pair terms take 40 fp64 instructions each (2.5 us at the fp64
+// issue rate), a square root and three divisions by one shared reciprocal
+// among them (forces.cuh div_rn_with). A step
 // costs them plus the launch. wgmma and TMA do not apply: there is no fp64
 // matrix product and a tile is a few KB.
 
 #include <cuda_runtime.h>
 
-#include "forces.cuh"
+#include "f64_force.cuh"
 #include "graded.cuh"
 
 namespace {
 
 using nbody::GradedArgs;
+using Geo = nbody::F64Block;
 
-constexpr int R = 4;             // rows per block
-constexpr int TJ = 64;           // columns per tile
-constexpr int NBUF = 4;          // term tiles in flight
-constexpr int NC = R * TJ;       // compute threads, one pair each a tile
-constexpr int THREADS = NC + 32; // and one fold warp
 constexpr int CHECK_THREADS = 256;
-constexpr int BAR_FULL = 1;          // named barriers: tile buf is written
-constexpr int BAR_EMPTY = 1 + NBUF;  // tile buf is folded
-static_assert(2 * NBUF < 16, "named barriers 1..15");
-static_assert(3 * R <= 32, "one fold lane per row and component");
 
-__device__ __forceinline__ void bar_sync(int id, int count) {
-    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int count) {
-    asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
+// B1''s sources: scenario row b's positions qb in the state's layout and
+// gm_j = fl(fl(m0_j + fl(mh_j * f)) * G) formed a pair
+template <bool Blocked>
+struct GradedSources {
+    const double* __restrict__ qb;
+    const double* __restrict__ m0;   // (n,) of the row
+    const double* __restrict__ mh;
+    double f, G;
+    nbody::Blocks L;
+    using Cursor = nbody::BlockCursor;
+    __device__ __forceinline__ Cursor cursor(int jj) const {
+        return Cursor(L, jj);
+    }
+    __device__ __forceinline__ const double* pos(Cursor& cur, int j) const {
+        return qb + nbody::source_at<Blocked>(cur, L, j);
+    }
+    __device__ __forceinline__ double gm_of(int j) const {
+        return nbody::graded_gm(m0[j], mh[j], f, G);
+    }
+};
 
 // dist3: the form of d2^1.5 (forces.cuh), a template argument, so the
 // dsqrt instantiation is the same code whatever the other form costs;
 // Blocked: whether the state may lie in several blocks (the mesh)
 template <int dist3, bool Blocked>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
 graded_step_f64_kernel(GradedArgs<double> a, const double* __restrict__ q_in,
                        const double* __restrict__ v_in,
                        double* __restrict__ q_out, double* __restrict__ v_out,
                        int t, int check) {
-    __shared__ double s_qi[3][R];
-    __shared__ double s_term[NBUF][3][R][TJ + 1];  // +1: no bank conflicts
+    __shared__ Geo::Smem sm;
 
-    const int b = blockIdx.y, i0 = a.r0 + blockIdx.x * R, tid = threadIdx.x;
-    const int n = a.n, live = min(R, nbody::graded_end(a) - i0);
+    const int b = blockIdx.y, i0 = a.r0 + blockIdx.x * Geo::R;
+    const int n = a.n, live = min(Geo::R, nbody::graded_end(a) - i0);
     if (check && blockIdx.x == 0 && b == 0)
         nbody::graded_check(a, const_cast<double*>(q_in),
                             const_cast<double*>(v_in), t - 1, false);
     if (live <= 0) return;  // a rank without rows: the checks only
     if (nbody::graded_frozen(a, b, t)) {
-        nbody::copy_bodies(a, q_in, v_in, q_out, v_out, b, i0, R);
+        nbody::copy_bodies(a, q_in, v_in, q_out, v_out, b, i0, Geo::R);
         return;
     }
     // scenario row src's sources from qb; the block's rows from qb + own,
@@ -107,54 +109,18 @@ graded_step_f64_kernel(GradedArgs<double> a, const double* __restrict__ q_in,
     const long long ob = 3LL * b * a.L.ni + own;
     const double* qb = q_in + sb;
     const size_t mb = static_cast<size_t>(b) * n;
-    const double f = a.fst[t];
-    if (tid < 3 * R) {
-        const int r = tid / 3, c = tid % 3;
-        s_qi[c][r] = r < live ? qb[own + 3 * r + c] : 0.0;
-    }
-    __syncthreads();
-
-    const int tiles = (n + TJ - 1) / TJ;
-    if (tid < NC) {
-        // compute threads: the pair (row r, column jj) of every tile
-        const int r = tid / TJ, jj = tid % TJ;
-        const double xi = s_qi[0][r], yi = s_qi[1][r], zi = s_qi[2][r];
-        const bool row_live = r < live;
-        nbody::BlockCursor cur(a.L, jj);
-        for (int k = 0; k < tiles; ++k) {
-            const int buf = k % NBUF;
-            if (k >= NBUF) bar_sync(BAR_EMPTY + buf, THREADS);
-            const int j = k * TJ + jj;
-            if (row_live && j < n) {
-                const double* qj = qb + nbody::source_at<Blocked>(cur, a.L, j);
-                nbody::b1_pair_term<dist3>(
-                    qj[0], qj[1], qj[2],
-                    nbody::graded_gm(a.m0[mb + j], a.mh[mb + j], f, a.G),
-                    xi, yi, zi, a.eps2, s_term[buf][0][r][jj],
-                    s_term[buf][1][r][jj], s_term[buf][2][r][jj]);
-            }
-            bar_arrive(BAR_FULL + buf, THREADS);
-        }
+    nbody::f64_rows_qi<Geo>(qb + own, live, sm);
+    if (threadIdx.x < Geo::NC) {
+        const GradedSources<Blocked> sources{qb, a.m0 + mb, a.mh + mb,
+                                             a.fst[t], a.G, a.L};
+        nbody::f64_rows_terms<Geo, dist3>(sources, n, live, a.eps2, sm);
         return;
     }
-    // the fold warp: lane (fr, fc) folds component fc of row fr
-    const int lane = tid - NC, fr = lane / 3, fc = lane % 3;
-    const bool folds = lane < 3 * R && fr < live;
-    const int x = 3 * fr + fc;
+    int x;
+    const bool folds = nbody::f64_fold_lane<Geo>(live, x);
     const double q0 = folds ? qb[own + x] : 0.0;
     const double v0 = folds ? v_in[sb + own + x] : 0.0;
-    double acc = 0.0;
-    for (int k = 0; k < tiles; ++k) {
-        const int buf = k % NBUF;
-        const int cols = min(TJ, n - k * TJ);
-        bar_sync(BAR_FULL + buf, THREADS);
-        if (folds) {
-            const double* term = s_term[buf][fc][fr];
-#pragma unroll 8
-            for (int jj = 0; jj < cols; ++jj) acc = __dadd_rn(acc, term[jj]);
-        }
-        if (k + NBUF < tiles) bar_arrive(BAR_EMPTY + buf, THREADS);
-    }
+    const double acc = nbody::f64_rows_fold<Geo>(n, folds, sm);
     if (folds)
         nbody::graded_euler(acc, q0, v0, a.dt, q_out[ob + x], v_out[ob + x]);
 }
@@ -205,17 +171,17 @@ extern "C" int graded_chunk_f64_launch(
     const GradedArgs<double> a = nbody::graded_args(
         m0, mh, fst, md2, others, arr, arr2, hit, flag, min_d2, q_snap,
         v_snap, mode, B, n, D, planet, G, dt, eps2, r2);
-    const dim3 grid((n + R - 1) / R, B);
+    const dim3 grid((n + Geo::R - 1) / Geo::R, B);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dist3 == nbody::DIST3_DSQRT)
         return nbody::graded_chunk(
             graded_step_f64_kernel<nbody::DIST3_DSQRT, false>,
-            graded_check_f64_kernel, grid, THREADS, CHECK_THREADS, a, q, v,
-            q2, v2, s0, s1, s);
+            graded_check_f64_kernel, grid, Geo::THREADS, CHECK_THREADS, a,
+            q, v, q2, v2, s0, s1, s);
     return nbody::graded_chunk(
         graded_step_f64_kernel<nbody::DIST3_SQRT3, false>,
-        graded_check_f64_kernel, grid, THREADS, CHECK_THREADS, a, q, v, q2,
-        v2, s0, s1, s);
+        graded_check_f64_kernel, grid, Geo::THREADS, CHECK_THREADS, a, q, v,
+        q2, v2, s0, s1, s);
 }
 
 // One launch of a mesh rank (graded.cuh graded_rows_launch): step t of
@@ -253,9 +219,17 @@ extern "C" int graded_rows_f64_step(
               : (dsqrt ? &graded_step_f64_kernel<nbody::DIST3_DSQRT, false>
                        : &graded_step_f64_kernel<nbody::DIST3_SQRT3, false>);
     return nbody::graded_rows_launch(
-        step, graded_check_f64_kernel, R, THREADS, CHECK_THREADS, a, qv,
+        step, graded_check_f64_kernel, Geo::R, Geo::THREADS, CHECK_THREADS,
+        a, qv,
         qv + half, qv_out, qv_out ? qv_out + half : nullptr, t, check,
         static_cast<cudaStream_t>(stream));
+}
+
+// What the card says of the one-device dsqrt step kernel
+// (f64_force.cuh f64_kernel_info).
+extern "C" int graded_step_f64_info(int* out) {
+    return nbody::f64_kernel_info<Geo>(
+        graded_step_f64_kernel<nbody::DIST3_DSQRT, false>, out);
 }
 
 extern "C" int fold_floor_f64_launch(const double* x, double* out,

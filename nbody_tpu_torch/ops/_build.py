@@ -24,7 +24,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libnbody_kernels.so")
 SOURCES = ("accel_f64.cu", "accel_f32.cu", "accel_mxu.cu", "accel_dd.cu",
-           "graded_step_f64.cu", "graded_step_f32.cu", "graded_step_dd.cu")
+           "graded_step_f64.cu", "graded_step_f32.cu", "graded_step_dd.cu",
+           "sim_step_f64.cu")
 # -fmad=false: no a*b+c contraction anywhere on the fp64 path (kernels B1 and
 # B4 also spell every op as a round-to-nearest intrinsic; B4's one fused
 # multiply-add, the exact product error, is an explicit __fma_rn, which the
@@ -116,6 +117,26 @@ def load() -> ctypes.CDLL:
         ctypes.c_int,                                        # dist3
         ctypes.c_void_p,                                     # cudaStream_t
     ]
+    lib.sim_chunk_f64_launch.restype = ctypes.c_int
+    lib.sim_chunk_f64_launch.argtypes = [
+        *[ctypes.c_void_p] * 5,                  # st0, st1, m0, mh, fst
+        *[ctypes.c_int] * 4,     # n, integrator, compensated, dist3
+        *[ctypes.c_double] * 4,                  # G, dt, kick, eps2
+        ctypes.c_int, ctypes.c_int,                          # t0, t1
+        ctypes.c_void_p,                                     # cudaStream_t
+    ]
+    lib.div_probe_launch.restype = ctypes.c_int
+    lib.div_probe_launch.argtypes = [
+        *[ctypes.c_void_p] * 4,                  # n, d, want, got
+        ctypes.c_int, ctypes.c_void_p,           # count, cudaStream_t
+    ]
+    lib.sim_step_f64_slots.restype = ctypes.c_int
+    lib.sim_step_f64_slots.argtypes = []
+    # what the card says of a binary64 force kernel (int out[7])
+    lib.accel_f64_info.restype = ctypes.c_int
+    lib.accel_f64_info.argtypes = [ctypes.c_void_p]
+    lib.graded_step_f64_info.restype = ctypes.c_int
+    lib.graded_step_f64_info.argtypes = [ctypes.c_void_p]
     lib.accel_dd_launch.restype = ctypes.c_int
     lib.accel_dd_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # qi, qj, gm

@@ -1,5 +1,5 @@
 """Count, in the SASS, the fp64 instructions that kernels B4 and B4' issue
-for one pair.
+for one pair, and those of kernel B1's pair (B1', simulate's step).
 
     python -m nbody_tpu_torch.scripts.sass_count
 
@@ -10,7 +10,9 @@ values they load, so that nothing folds away: B4's pair term
 (`dd_pair_terms<2>`), the fold of one term component (`dd_fold_add`), the
 pair term with the fold of its three components, and the graded step's
 gm_j = (m0_j + mh_j * fst[t]) * G in double-double (csrc/graded.cuh
-`graded_gm`). It disassembles them with `cuobjdump -sass`
+`graded_gm`), and kernel B1's binary64 pair term (csrc/forces.cuh
+`b1_pair_term`, dsqrt) with the fold of its three components. It
+disassembles them with `cuobjdump -sass`
 and counts in each the fp64 instructions of the fast path (DADD, DMUL,
 DFMA, MUFU.RCP64H, MUFU.RSQ64H) before the kernel's EXIT. The slow paths of
 the binary64 divisions and roots, taken only for operands near the ends
@@ -35,6 +37,7 @@ FP64 = ("DADD", "DMUL", "DFMA", "MUFU.RCP64H", "MUFU.RSQ64H")
 
 PROBES = r"""
 #include "dd.cuh"
+#include "forces.cuh"
 #include "graded.cuh"
 
 using nbody::dd;
@@ -71,6 +74,17 @@ extern "C" __global__ void pair_term_and_fold(const dd* in, dd* acc) {
         nbody::dd_fold_add(a, t[0][c]);
         acc[threadIdx.x * 3 + c] = a;
     }
+}
+
+extern "C" __global__ void b1_pair_term_and_fold(const double* in,
+                                                  double* acc) {
+    const double* p = in + threadIdx.x * 8;
+    double t[3];
+    nbody::b1_pair_term<nbody::DIST3_DSQRT>(p[0], p[1], p[2], p[3], p[4],
+                                            p[5], p[6], p[7], t[0], t[1],
+                                            t[2]);
+    for (int c = 0; c < 3; ++c)
+        acc[threadIdx.x * 3 + c] = __dadd_rn(acc[threadIdx.x * 3 + c], t[c]);
 }
 
 extern "C" __global__ void gm(const dd* in, dd* out) {
@@ -148,7 +162,9 @@ def main() -> int:
     print(json.dumps({"probes": counts, "fp64_per_pair": per_pair,
                       "two_rows_fp64_per_pair":
                           counts["pair_terms_2"]["total"] / 2,
-                      "gm_fp64": counts["gm"]["total"]}))
+                      "gm_fp64": counts["gm"]["total"],
+                      "b1_fp64_per_pair":
+                          counts["b1_pair_term_and_fold"]["total"]}))
     return 0
 
 

@@ -9,11 +9,15 @@ precision:
                      integrator="leapfrog", device="cuda", on_chunk=callback)
 
 The port of `nbody_tpu.simulate.simulate`, on one device or over a mesh of
-ranks (`mesh`). Each step is a few eager PyTorch ops around one
-force-kernel launch (on the mesh: the kernel's cross form on this rank's
-rows and a gather, or the ordered ring). `chunk` sets how often the host
-reads the state back for `on_chunk` and never changes the arithmetic, so
-results are bitwise invariant to it.
+ranks (`mesh`). In binary64 on one device a chunk goes to the binary64
+step kernel's wrapper (ops/sim_step.sim_chunk_f64): on a card one C call,
+one launch a step; on the CPU its plain version. Elsewhere each step is a
+few eager PyTorch ops around one force-kernel launch
+(ops/sim_step.eager_chunk; on the mesh: the kernel's cross form on this
+rank's rows and a gather, or the ordered ring), with the same bits as the
+step kernel in binary64. `chunk` sets how often the host reads the
+state back for `on_chunk` and never changes the arithmetic, so results are
+bitwise invariant to it.
 """
 
 from __future__ import annotations
@@ -29,9 +33,9 @@ from .device import resolve_device
 from .io import Scene
 from .ops import ddfloat as ddf
 from .ops.forces import check_dist3
-from .ops.integrate import accel, accel_dd_state, kdk_leapfrog_step, \
-    kdk_leapfrog_step_dd, scalar, symplectic_euler_step, \
+from .ops.integrate import accel, accel_dd_state, kdk_leapfrog_step_dd, \
     symplectic_euler_step_dd
+from .ops.sim_step import SimCarry, eager_chunk, sim_chunk_f64
 from .physics import oscillation_table
 from .utils.rescale import IDENTITY, compute_rescale
 
@@ -57,19 +61,6 @@ class SimState:
     v_lo: Optional[np.ndarray] = None
 
 
-def _comp_add(x, c, d):
-    """Kahan compensated x += d with running compensation c.
-
-    y = d - c recovers the low-order bits lost on previous adds; the new
-    compensation is the rounding error of t = x + y, extracted exactly by
-    (t - x) - y (|y| <= |x| in the integration regime). Three eager ops:
-    under torch.compile or a fused op the extraction could be simplified
-    away."""
-    y = d - c
-    t = x + y
-    return t, (t - x) - y
-
-
 def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
              n_steps: Optional[int] = None, precision: str = "f64",
              device: str = "cuda", devices_on: bool = True,
@@ -86,7 +77,9 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
                      (utils/rescale: graded scenes overflow float32), force
                      kernel B2 (ops/accel_f32).
       'f64', 'e64' — native IEEE binary64, force kernel B1 with the serial
-                     fold (ops/accel_f64), d2^1.5 in cfg.dist3_mode's form
+                     fold (ops/accel_f64; on one card inside the binary64
+                     step kernel, ops/sim_step), d2^1.5 in cfg.dist3_mode's
+                     form
                      ('dsqrt' or 'sqrt3'; 'pow' is refused: libm's pow is
                      reproduced by neither CUDA nor torch). On the TPU
                      'e64' is a softfloat emulation of the same semantics
@@ -180,8 +173,10 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
                             force=force)
 
     # the oscillation table as host scalars of the state's dtype: each step
-    # scales the device half-masses by one of them
-    fst = oscillation_table(run_cfg, n_steps).astype(np_dtype).tolist()
+    # scales the device half-masses by one of them (the binary64 step
+    # kernel reads the same values from a device table)
+    table = oscillation_table(run_cfg, n_steps).astype(np_dtype)
+    fst = table.tolist()
     mask = run_scene.device_mask()
     m0 = run_scene.m * (1.0 if devices_on else (1.0 - mask))
     m_half = 0.5 * m0 * mask
@@ -193,49 +188,37 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
     def whole(x):
         return x if layout is None else layout.whole(x, dim=0)
 
-    q, v = put(run_scene.q), put(run_scene.v)
+    c = SimCarry(put(run_scene.q), put(run_scene.v))
     m0t, m_halft = put(m0), put(m_half)
     G, eps, dt = run_cfg.G, run_cfg.eps, run_cfg.dt
     inv = 1.0 / rescale.length_scale
 
     def host_state(step):
         return SimState(step=step,
-                        q=whole(q).cpu().numpy().astype(np.float64) * inv,
-                        v=whole(v).cpu().numpy().astype(np.float64) * inv)
+                        q=whole(c.q).cpu().numpy().astype(np.float64) * inv,
+                        v=whole(c.v).cpu().numpy().astype(np.float64) * inv)
 
-    a = None
     if integrator == "leapfrog":
         # seeded at the initial positions with the first step's masses
-        a = accel(q, m0t + m_halft * fst[min(1, n_steps)], G=G, eps=eps,
-                  dist3_mode=dist3, force=force)
+        c.a = accel(c.q, m0t + m_halft * fst[min(1, n_steps)], G=G, eps=eps,
+                    dist3_mode=dist3, force=force)
     if compensated:
-        qc, vc = torch.zeros_like(q), torch.zeros_like(v)
-        kick, drift = scalar(0.5 * dt, dtype), scalar(dt, dtype)
+        c.qc, c.vc = torch.zeros_like(c.q), torch.zeros_like(c.v)
+    kw = {"G": G, "eps": eps, "dt": dt, "integrator": integrator,
+          "compensated": compensated, "dist3_mode": dist3}
+    if precision in _BINARY64 and layout is None:
+        fst_t = torch.from_numpy(table).to(dev)
+
+        def advance(s0, s1):
+            sim_chunk_f64(c, m0t, m_halft, fst_t, s0, s1, **kw)
+    else:
+        def advance(s0, s1):
+            eager_chunk(c, m0t, m_halft, fst, s0, s1, force=force, **kw)
 
     step = 0
     while step < n_steps:
         n_sub = min(chunk, n_steps - step)
-        for s in range(step + 1, step + n_sub + 1):
-            m_eff = m0t + m_halft * fst[s]
-            if integrator == "leapfrog" and compensated:
-                v, vc = _comp_add(v, vc, a * kick)
-                q, qc = _comp_add(q, qc, v * drift)
-                a = accel(q, m_eff, G=G, eps=eps, dist3_mode=dist3,
-                          force=force)
-                v, vc = _comp_add(v, vc, a * kick)
-            elif integrator == "leapfrog":
-                q, v, a = kdk_leapfrog_step(q, v, a, m_eff, G=G, eps=eps,
-                                            dt=dt, dist3_mode=dist3,
-                                            force=force)
-            elif compensated:
-                a = accel(q, m_eff, G=G, eps=eps, dist3_mode=dist3,
-                          force=force)
-                v, vc = _comp_add(v, vc, a * drift)
-                q, qc = _comp_add(q, qc, v * drift)
-            else:
-                q, v = symplectic_euler_step(q, v, m_eff, G=G, eps=eps,
-                                             dt=dt, dist3_mode=dist3,
-                                             force=force)
+        advance(step, step + n_sub)
         step += n_sub
         if on_chunk is not None:
             on_chunk(host_state(step))

@@ -147,3 +147,31 @@ def test_kernel_bit_equal_to_twin_on_card(cuda, B, n):
     assert accel_f64.launches == before + 1
     assert torch.equal(got, accel_f64_ref(qc, qc, gmc, eps=EPS))
     assert torch.equal(got.cpu(), accel_f64_ref(*_self(q, gm), eps=EPS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist3", ["dsqrt", "sqrt3"])
+@pytest.mark.parametrize("B,ni,nj", [(1, 1024, 1024), (2, 512, 1024),
+                                     (1, 4097, 4097), (3, 1001, 77),
+                                     (1, 9, 2000)])
+def test_kernel_bit_equal_to_twin_at_ragged_shapes_on_card(cuda, B, ni, nj,
+                                                           dist3):
+    """Rows and sources that end mid-block and mid-tile, self and cross."""
+    q, gm = _inputs(3, B, nj)
+    qc, gmc = (torch.from_numpy(x).to(cuda) for x in (q, gm))
+    qi = qc[:, :ni].contiguous()
+    got = accel_f64(qi, qc, gmc, eps=EPS, dist3_mode=dist3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, accel_f64_ref(qi, qc, gmc, eps=EPS,
+                                          dist3_mode=dist3))
+
+
+@pytest.mark.cuda
+def test_pair_division_bit_equal_to_ddiv_rn_on_card(cuda):
+    """The pair term's division (csrc/forces.cuh div_rn_with, one reciprocal
+    for three quotients) against __ddiv_rn on the smoke's operands: a
+    toolkit whose div.rn.f64 differs from the code it copies shows here."""
+    import chip_smoke
+
+    rec = chip_smoke.check_div_probe(1 << 20)   # raises on a difference
+    assert rec["mismatches"] == 0 and rec["values"] > 1 << 20

@@ -14,6 +14,7 @@ The port's results are bitwise invariant to the chunk size, on any device.
 """
 
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -156,8 +157,9 @@ def test_on_chunk_and_checkpoint_resume(tmp_path):
     ("f64", "euler", STEPS), ("f64", "leapfrog", STEPS + 1)])
 def test_force_goes_through_the_kernel_wrappers(monkeypatch, precision,
                                                 integrator, force_calls):
-    """f32 calls kernel B2's wrapper and f64 kernel B1's (as a batch of 1),
-    once per step, plus the leapfrog seed."""
+    """f32 calls kernel B2's wrapper once per step; f64 the binary64 step
+    kernel's wrapper once a chunk, each of whose steps runs kernel B1's
+    force, and B1's wrapper (as a batch of 1) for the leapfrog seed."""
     calls = {"f32": 0, "f64": 0}
 
     def spy(name, fn):
@@ -166,10 +168,19 @@ def test_force_goes_through_the_kernel_wrappers(monkeypatch, precision,
             return fn(*args, **kw)
         return wrapped
 
+    def chunk_spy(fn):
+        def wrapped(c, m0, m_half, fst, s0, s1, **kw):
+            calls["f64"] += s1 - s0
+            return fn(c, m0, m_half, fst, s0, s1, **kw)
+        return wrapped
+
+    sim_module = sys.modules["nbody_tpu_torch.simulate"]
     monkeypatch.setattr(integrate, "accel_f32_self",
                         spy("f32", integrate.accel_f32_self))
     monkeypatch.setattr(integrate, "accel_f64",
                         spy("f64", integrate.accel_f64))
+    monkeypatch.setattr(sim_module, "sim_chunk_f64",
+                        chunk_spy(sim_module.sim_chunk_f64))
     simulate(_port(_fuzz_scene(6)), CFG, n_steps=STEPS, precision=precision,
              device="cpu", integrator=integrator)
     other = "f64" if precision == "f32" else "f32"

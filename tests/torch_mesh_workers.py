@@ -119,6 +119,30 @@ def simulate_jobs(axes: dict, jobs: list) -> dict:
     return out
 
 
+def simulate_routes(axes: dict, scene, n_steps: int) -> dict:
+    """Calls on this rank of the binary64 step kernel's wrapper and of
+    kernel B1's (the mesh's cross form) in an f64 Euler simulate() of
+    n_steps on one mesh."""
+    import sys
+
+    from nbody_tpu_torch import simulate
+    from nbody_tpu_torch.parallel import solver_sharded
+
+    sim_module = sys.modules["nbody_tpu_torch.simulate"]
+    counts = {"sim_chunk_f64": 0, "accel_f64": 0}
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            counts[name] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    sim_module.sim_chunk_f64 = spy("sim_chunk_f64", sim_module.sim_chunk_f64)
+    solver_sharded.accel_f64 = spy("accel_f64", solver_sharded.accel_f64)
+    simulate(scene, mesh=_mesh(axes), n_steps=n_steps, precision="f64")
+    return counts
+
+
 def ring_jobs(axes: dict, q: np.ndarray, v: np.ndarray, m: np.ndarray,
               G: float, eps: float, dt: float, m_half: np.ndarray,
               fst: np.ndarray) -> dict:
