@@ -175,12 +175,13 @@ def _solve(args, cfg, device, mesh) -> int:
     from .ops.accel_f64 import accel_f64
     from .ops.graded_step import graded_step_dd, graded_step_f32, \
         graded_step_f64
-    from .ops.sim_step import sim_chunk_f64
+    from .ops.sim_step import sim_chunk_dd, sim_chunk_f32, sim_chunk_f64
     from .utils.profiling import PhaseTimers, pair_interactions
 
     timers = PhaseTimers(device)
     kernels = (accel_f64, accel_f32, accel_dd, graded_step_f64,
-               graded_step_f32, graded_step_dd, sim_chunk_f64)
+               graded_step_f32, graded_step_dd, sim_chunk_f64, sim_chunk_f32,
+               sim_chunk_dd)
     launches0 = [k.launches for k in kernels]
     t0 = time.perf_counter()
     with timers.phase("read_input"):

@@ -25,18 +25,10 @@
 // a (B, ni, 3), all contiguous float32. The batch row b rides blockIdx.y:
 // rows of different b never mix, and no sum depends on B or on the shape
 // chosen below, so a batched launch is bitwise equal to B launches of one
-// row. A block owns RB = R * LR rows of one batch row and walks the
-// sources in rounds of TPR tiles. A thread owns R rows and, in a round, one
-// tile: it folds that tile's pair terms for its R rows (one staged source
-// feeds R terms). The LR lanes of a warp that share a tile read the same
-// staged source (a broadcast); a warp folds 32 / LR tiles at once, and the
-// W warps of the block fold the rest of the round's tiles. The tile sums go
-// through shared memory, and one owner thread per (row, component) adds
-// them to its register in ascending tile order. The next round's sources
-// are copied into the other half of a 2-deep shared ring with cp.async
-// while the current round is folded; one barrier a round. The last tile is
-// folded only to its end, so any ni and nj work unpadded. There are no
-// atomics: the result is bitwise the same from run to run.
+// row. A block computes RB rows of one batch row: the block force of
+// f32_force.cuh (b2_rows_force), shared with simulate's float32 step
+// (sim_step_f32.cu), which has the design; its owner threads write the
+// rows' components.
 //
 // Bound: fp32 issue. A pair costs 18 FP32 instructions and one MUFU rsqrt
 // (rsqrt_approx, forces.cuh: no denormal scaling, which d2 >= eps2 never
@@ -53,148 +45,26 @@
 
 #include <cuda_runtime.h>
 
-#include "forces.cuh"
+#include "f32_force.cuh"
 
 namespace {
-
-constexpr int TJ = 128;          // sources a tile: the TPU kernel's sums
-constexpr int STRIDE = TJ + 2;   // float4s between staged tiles: the LR
-                                 // lanes of each tile land on other banks
-// the large shape is taken when its grid has at least this many blocks
-// (two waves of 132 SMs); below it, the small one
-constexpr int LARGE_MIN_BLOCKS = 264;
-
-template <int R_, int LR_, int W_>
-struct Shape {
-    static constexpr int R = R_;            // rows a thread
-    static constexpr int LR = LR_;          // lanes of a warp on one tile
-    static constexpr int THREADS = 32 * W_;
-    static constexpr int LT = 32 / LR;      // tiles a warp folds in a round
-    static constexpr int RB = R * LR;       // rows a block
-    static constexpr int TPR = W_ * LT;     // tiles a round
-    static constexpr int SPAN = TPR * TJ;   // sources a round
-    static constexpr int OWN = (3 * RB + THREADS - 1) / THREADS;
-    static_assert(32 % LR == 0, "a warp holds whole row groups");
-};
-
-using Large = Shape<4, 32, 4>;
-using Small = Shape<2, 8, 2>;
-
-// Copy the sources [j0, j0 + cnt) of a round into the staged layout: tile
-// k of the round at buf[k * STRIDE], one float4 (x, y, z, gm) a source.
-template <class S>
-__device__ __forceinline__ void stage(float4* buf, const float* qj,
-                                      const float* gmj, int j0, int cnt) {
-    for (int k = threadIdx.x; k < cnt; k += S::THREADS) {
-        float* d = reinterpret_cast<float*>(buf + (k / TJ) * STRIDE + k % TJ);
-        const size_t j = static_cast<size_t>(j0) + k;
-        nbody::cp_async4(d, qj + j * 3);
-        nbody::cp_async4(d + 1, qj + j * 3 + 1);
-        nbody::cp_async4(d + 2, qj + j * 3 + 2);
-        nbody::cp_async4(d + 3, gmj + j);
-    }
-}
-
-// The owners' share of a round: each (row, component) adds the round's
-// tile sums, in ascending tile order, to its register.
-template <class S>
-__device__ __forceinline__ void add_tile_sums(
-        float (*part)[3][S::RB], int round, int nj,
-        float (&acc)[S::OWN]) {
-#pragma unroll
-    for (int k = 0; k < S::OWN; ++k) {
-        const int o = threadIdx.x + k * S::THREADS;
-        if (o < 3 * S::RB)
-            for (int tt = 0; tt < S::TPR
-                 && (round * S::TPR + tt) * TJ < nj; ++tt)
-                acc[k] += part[tt][o / S::RB][o % S::RB];
-    }
-}
 
 template <class S>
 __global__ void __launch_bounds__(S::THREADS)
 accel_f32_kernel(const float* __restrict__ qi, const float* __restrict__ qj,
                  const float* __restrict__ gmj, float* __restrict__ a,
                  int ni, int nj, float eps2) {
-    __shared__ float4 s_src[2][S::TPR * STRIDE];
-    __shared__ float s_part[2][S::TPR][3][S::RB];
+    __shared__ typename S::Smem sm;
 
     const size_t b = blockIdx.y;
-    qi += b * ni * 3;
-    qj += b * nj * 3;
-    gmj += b * nj;
-    a += b * ni * 3;
-    const int tid = threadIdx.x, lane = tid % 32;
-    const int lr = lane % S::LR;
-    const int tt = (tid / 32) * S::LT + lane / S::LR;   // tile of the round
     const long long i0 = static_cast<long long>(blockIdx.x) * S::RB;
-
-    // this thread's rows i0 + r * LR + lr
-    float xi[S::R], yi[S::R], zi[S::R];
-#pragma unroll
-    for (int r = 0; r < S::R; ++r) {
-        const long long i = i0 + r * S::LR + lr;
-        xi[r] = yi[r] = zi[r] = 0.0f;
-        if (i < ni) {
-            xi[r] = qi[i * 3];
-            yi[r] = qi[i * 3 + 1];
-            zi[r] = qi[i * 3 + 2];
-        }
-    }
     float acc[S::OWN];
-#pragma unroll
-    for (int k = 0; k < S::OWN; ++k) acc[k] = 0.0f;
-
-    const int rounds = (nj - 1) / S::SPAN + 1;
-    stage<S>(s_src[0], qj, gmj, 0, min(S::SPAN, nj));
-    nbody::cp_async_commit();
-    for (int rd = 0; rd < rounds; ++rd) {
-        nbody::cp_async_wait<0>();
-        // this round's sources are in; every thread has folded the last
-        // round (its half of the ring is free) and written its tile sums
-        __syncthreads();
-        if (rd + 1 < rounds) {
-            const int j1 = (rd + 1) * S::SPAN;
-            stage<S>(s_src[(rd + 1) % 2], qj, gmj, j1, min(S::SPAN, nj - j1));
-        }
-        nbody::cp_async_commit();
-        if (rd > 0)
-            add_tile_sums<S>(s_part[(rd - 1) % 2], rd - 1, nj, acc);
-
-        const int j0 = (rd * S::TPR + tt) * TJ;
-        if (j0 < nj) {
-            const int cols = min(TJ, nj - j0);
-            const float4* src = s_src[rd % 2] + tt * STRIDE;
-            float px[S::R], py[S::R], pz[S::R];
-#pragma unroll
-            for (int r = 0; r < S::R; ++r) px[r] = py[r] = pz[r] = 0.0f;
-#pragma unroll 4
-            for (int jj = 0; jj < cols; ++jj) {
-                const float4 s = src[jj];
-#pragma unroll
-                for (int r = 0; r < S::R; ++r) {
-                    float tx, ty, tz;
-                    nbody::b2_pair_term(s, xi[r], yi[r], zi[r], eps2, tx, ty,
-                                        tz);
-                    px[r] += tx;
-                    py[r] += ty;
-                    pz[r] += tz;
-                }
-            }
-            float (*part)[S::RB] = s_part[rd % 2][tt];
-#pragma unroll
-            for (int r = 0; r < S::R; ++r) {
-                part[0][r * S::LR + lr] = px[r];
-                part[1][r * S::LR + lr] = py[r];
-                part[2][r * S::LR + lr] = pz[r];
-            }
-        }
-    }
-    __syncthreads();
-    add_tile_sums<S>(s_part[(rounds - 1) % 2], rounds - 1, nj, acc);
+    nbody::b2_rows_force<S>(qi + b * ni * 3, ni, i0, qj + b * nj * 3,
+                            gmj + b * nj, nj, eps2, sm, acc);
+    a += b * ni * 3;
 #pragma unroll
     for (int k = 0; k < S::OWN; ++k) {
-        const int o = tid + k * S::THREADS;
+        const int o = threadIdx.x + k * S::THREADS;
         const long long i = i0 + o % S::RB;
         if (o < 3 * S::RB && i < ni)
             a[i * 3 + o / S::RB] = acc[k];
@@ -235,10 +105,10 @@ extern "C" int accel_f32_launch(const float* qi, const float* qj,
     if (B <= 0 || B > 65535 || ni <= 0 || nj <= 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if ((ni + (Large::RB - 1LL)) / Large::RB * B >= LARGE_MIN_BLOCKS)
-        launch<Large>(qi, qj, gmj, a, B, ni, nj, eps2, s);
+    if (nbody::b2_large(B, ni))
+        launch<nbody::B2Large>(qi, qj, gmj, a, B, ni, nj, eps2, s);
     else
-        launch<Small>(qi, qj, gmj, a, B, ni, nj, eps2, s);
+        launch<nbody::B2Small>(qi, qj, gmj, a, B, ni, nj, eps2, s);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -251,4 +121,17 @@ extern "C" int rsqrt_probe_launch(const float* x, float* want, float* got,
     rsqrt_probe_kernel<<<(n + 255) / 256, 256, 0,
                          static_cast<cudaStream_t>(stream)>>>(x, want, got, n);
     return static_cast<int>(cudaGetLastError());
+}
+
+// What the card says of B2 in the shape it takes at B = 1, ni rows
+// (forces.cuh kernel_info).
+extern "C" int accel_f32_info(int ni, int* out) {
+    using nbody::B2Large;
+    using nbody::B2Small;
+    if (ni <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    return nbody::b2_large(1, ni)
+               ? nbody::kernel_info(accel_f32_kernel<B2Large>,
+                                    B2Large::THREADS, B2Large::RB, out)
+               : nbody::kernel_info(accel_f32_kernel<B2Small>,
+                                    B2Small::THREADS, B2Small::RB, out);
 }

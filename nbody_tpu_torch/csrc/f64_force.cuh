@@ -167,21 +167,15 @@ __device__ __forceinline__ double f64_rows_fold(int n, bool folds,
 }
 
 // What the card says of a kernel of geometry Geo: out = {registers, local
-// bytes, threads, resident blocks an SM, rows a block, columns a tile,
-// NBODY_SHARED_RCP (forces.cuh)}. Returns the CUDA error, or 0.
+// bytes, threads, resident blocks an SM, rows a block (forces.cuh
+// kernel_info), columns a tile, NBODY_SHARED_RCP (forces.cuh)}. Returns
+// the CUDA error, or 0.
 template <class Geo, class Kernel>
 int f64_kernel_info(Kernel* kernel, int* out) {
-    cudaFuncAttributes attr;
-    int blocks = 0;
-    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, kernel, Geo::THREADS, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int info[7] = {attr.numRegs, static_cast<int>(attr.localSizeBytes),
-                         Geo::THREADS, blocks, Geo::R, Geo::TJ,
-                         NBODY_SHARED_RCP};
-    for (int i = 0; i < 7; ++i) out[i] = info[i];
+    const int err = kernel_info(kernel, Geo::THREADS, Geo::R, out);
+    if (err != 0) return err;
+    out[5] = Geo::TJ;
+    out[6] = NBODY_SHARED_RCP;
     return 0;
 }
 

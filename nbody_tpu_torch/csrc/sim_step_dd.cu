@@ -1,0 +1,124 @@
+// simulate()'s double-double step on one device (precisions 'tf3', 'ddp'
+// and 'dd+'): masses, kernel B4's force and the update, Euler or leapfrog
+// (KDK), one launch a step and one C call a chunk.
+//
+// Replaces, on simulate's path beyond binary64, the JAX package's tf3
+// scan (nbody_tpu/simulate.py _chunk_scan, its tf3 branch around
+// nbody_tpu/ops/forces.py::pairwise_accel_tf3), in double-double where
+// the JAX package carries triple-float32 (accel_dd.cu says why).
+// sim_step.cuh has the step's ops in double-double (dd.cuh, the op
+// sequences of ops/ddfloat): m_eff = m0 + mh * (fst[t], 0), gm = m_eff *
+// (G, 0), each x += a*h as dd_add(x, dd_mul(a, (h, 0))), the ops of
+// ops/integrate._axpy_dd; there is no compensation. The force is kernel
+// B4's block force (dd_force.cuh, geometry DdNarrow, gm from a table), so
+// a chunk is bit-equal to the eager loop around kernel B4 (and to its
+// plain version, ops/sim_step.sim_chunk_dd_ref).
+//
+// Launch t's block owns B4's 4 rows: its compute threads make the pair
+// terms over the sources p (leapfrog) or q (Euler) and gm; its fold lane
+// (row, component) reads the component's state before the fold, then
+// updates it and forms what step t + 1 reads of it (the lane of the row's
+// first component its gm).
+//
+// Bound: kernel B4's (the fp64 pipe, 333 instructions a pair) plus the
+// launch; the update is a few dozen fp64 ops a body.
+
+#include <cuda_runtime.h>
+
+#include "dd_force.cuh"
+#include "forces.cuh"
+#include "sim_step.cuh"
+
+namespace {
+
+using nbody::dd;
+using Geo = nbody::DdNarrow;
+using Args = nbody::SimArgs<dd>;
+
+// Step t from buffer in into buffer out; `next`: form what step t + 1
+// reads (every step but a chunk's last)
+template <int integ>
+__global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
+sim_step_dd_kernel(Args a, const dd* __restrict__ in, dd* __restrict__ out,
+                   int t, int next) {
+    __shared__ Geo::Smem sm;
+
+    const long long S = a.slot;
+    const int i0 = blockIdx.x * Geo::R, live = min(Geo::R, a.n - i0);
+    const dd* pos = in + nbody::sim_pos_slot<integ>() * S;
+    nbody::dd_rows_qi<Geo>(pos + 3LL * i0, live, sm);
+    if (threadIdx.x < Geo::NC) {
+        // the sources (n, 3): one block of n rows
+        nbody::dd_rows_terms<Geo>(pos, nbody::Blocks{a.n, 0}, a.n, a.eps2,
+                                  nbody::DdGmTable{in + nbody::SLOT_GM * S},
+                                  sm);
+        return;
+    }
+    int x;
+    const bool folds = nbody::dd_fold_lane<Geo>(live, x);
+    const long long e = 3LL * i0 + x;
+    nbody::SimLane<dd> s{};
+    if (folds) s = nbody::sim_load<dd, integ, false>(a, in, e);
+    const dd acc = nbody::dd_rows_fold<Geo>(a.n, folds, sm);
+    if (!folds) return;
+    nbody::sim_update<dd, integ, false>(a, s, acc, out, e, next);
+    if (next && x % 3 == 0) nbody::sim_form_gm(a, out, i0 + x / 3, t + 1);
+}
+
+template <int integ>
+int chunk(const Args& a, dd* buf[2], int t0, int t1, cudaStream_t s) {
+    const dim3 grid((a.n + Geo::R - 1) / Geo::R);
+    return nbody::sim_chunk<dd, integ, false>(
+        a, buf, t0, t1, s, [&](dd* in, dd* out, int t, int next) {
+            sim_step_dd_kernel<integ>
+                <<<grid, Geo::THREADS, 0, s>>>(a, in, out, t, next);
+        });
+}
+
+}  // namespace
+
+// Steps t0 + 1 .. t1 of simulate's double-double loop on one scene of n
+// bodies, every value a pair of doubles (hi, lo). st0, st1: two buffers of
+// SIM_SLOTS * n * 3 pairs; st0 holds the state in its slots q, v (and a
+// for the leapfrog), and the state after step t1 lies in the same slots
+// of st0 if t1 - t0 is even, else of st1. m0, mh (n,) pairs; fst (t1 + 1,)
+// doubles at least; G, dt and kick = dt / 2 binary64 values (taken as
+// (x, 0)), eps2 = eps2_hi + eps2_lo. integrator: 0 Euler, 1 leapfrog. One
+// launch forms the chunk's first inputs, then one launch a step; no host
+// synchronisation. Returns the first launch error, or
+// cudaErrorInvalidValue without launching.
+extern "C" int sim_chunk_dd_launch(double* st0, double* st1,
+                                   const double* m0, const double* mh,
+                                   const double* fst, int n, int integrator,
+                                   double G, double dt, double kick,
+                                   double eps2_hi, double eps2_lo, int t0,
+                                   int t1, void* stream) {
+    if (!nbody::sim_chunk_args_ok(n, integrator, t0, t1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const Args a{reinterpret_cast<const dd*>(m0),
+                 reinterpret_cast<const dd*>(mh),
+                 fst,
+                 n,
+                 3LL * n,
+                 dd{G, 0.0},
+                 dd{dt, 0.0},
+                 dd{kick, 0.0},
+                 dd{eps2_hi, eps2_lo}};
+    dd* buf[2] = {reinterpret_cast<dd*>(st0), reinterpret_cast<dd*>(st1)};
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return integrator == nbody::SIM_EULER
+               ? chunk<nbody::SIM_EULER>(a, buf, t0, t1, s)
+               : chunk<nbody::SIM_LEAPFROG>(a, buf, t0, t1, s);
+}
+
+// What the card says of the step kernel of this integrator (forces.cuh
+// kernel_info).
+extern "C" int sim_step_dd_info(int integrator, int* out) {
+    if (!nbody::sim_chunk_args_ok(1, integrator, 0, 1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return integrator == nbody::SIM_EULER
+               ? nbody::kernel_info(sim_step_dd_kernel<nbody::SIM_EULER>,
+                                    Geo::THREADS, Geo::R, out)
+               : nbody::kernel_info(sim_step_dd_kernel<nbody::SIM_LEAPFROG>,
+                                    Geo::THREADS, Geo::R, out);
+}

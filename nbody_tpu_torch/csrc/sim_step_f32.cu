@@ -1,0 +1,145 @@
+// simulate()'s float32 step on one device: masses, kernel B2's force and
+// the update, Euler or leapfrog (KDK), with or without Kahan compensation,
+// one launch a step and one C call a chunk.
+//
+// Replaces, on simulate's float32 path, nbody_tpu/ops/pallas_forces.py
+// ::_accel_kernel together with the per-step work around it that the JAX
+// package compiles into one scan per chunk (nbody_tpu/simulate.py
+// _chunk_scan, its float32 branch with use_pallas). sim_step.cuh has the
+// step's ops, in float32 (every constant rounded to float32 by the
+// caller, as ops/integrate.scalar rounds it), the state buffer's slots and
+// the chunk's launches. The force is kernel B2's block force
+// (f32_force.cuh b2_rows_force) in the shape B2 takes for one scene of n
+// rows (b2_large), so a chunk is bit-equal to the eager loop around kernel
+// B2 (and to its plain version, ops/sim_step.sim_chunk_f32_ref) at every n.
+//
+// Launch t's block owns B2's RB rows: it sums their force over the sources
+// p (leapfrog) or q (Euler) and gm; then each owner thread of a (row,
+// component) reads the component's state, updates it and forms what step
+// t + 1 reads of it (the owner of the row's first component its gm).
+//
+// Bound: kernel B2's (fp32 issue, 18 FP32 instructions and one rsqrt a
+// pair; at n = 1024 the launch and one tile's chain of 128 adds) plus the
+// launch; the update is a few ops a body.
+
+#include <cuda_runtime.h>
+
+#include "f32_force.cuh"
+#include "sim_step.cuh"
+
+namespace {
+
+using Args = nbody::SimArgs<float>;
+
+// Step t from buffer in into buffer out in B2's shape Sh; `next`: form
+// what step t + 1 reads (every step but a chunk's last)
+template <class Sh, int integ, bool comp>
+__global__ void __launch_bounds__(Sh::THREADS)
+sim_step_f32_kernel(Args a, const float* __restrict__ in,
+                    float* __restrict__ out, int t, int next) {
+    __shared__ typename Sh::Smem sm;
+
+    const long long S = a.slot;
+    const long long i0 = static_cast<long long>(blockIdx.x) * Sh::RB;
+    const float* pos = in + nbody::sim_pos_slot<integ>() * S;
+    float acc[Sh::OWN];
+    nbody::b2_rows_force<Sh>(pos, a.n, i0, pos, in + nbody::SLOT_GM * S,
+                             a.n, a.eps2, sm, acc);
+    // the owned (row, component)s (f32_force.cuh B2Shape::OWN): their
+    // state read after the force (read before it and held across the
+    // source loop, it made the large shape 17% slower at n = 65536), then
+    // updated
+#pragma unroll
+    for (int k = 0; k < Sh::OWN; ++k) {
+        const int o = threadIdx.x + k * Sh::THREADS, c = o / Sh::RB;
+        const long long i = i0 + o % Sh::RB, e = 3 * i + c;
+        if (o < 3 * Sh::RB && i < a.n) {
+            nbody::sim_update<float, integ, comp>(
+                a, nbody::sim_load<float, integ, comp>(a, in, e), acc[k],
+                out, e, next);
+            if (next && c == 0) nbody::sim_form_gm(a, out, i, t + 1);
+        }
+    }
+}
+
+template <class Sh, int integ, bool comp>
+int chunk(const Args& a, float* buf[2], int t0, int t1, cudaStream_t s) {
+    const dim3 grid(static_cast<unsigned>((a.n + (Sh::RB - 1LL)) / Sh::RB));
+    return nbody::sim_chunk<float, integ, comp>(
+        a, buf, t0, t1, s, [&](float* in, float* out, int t, int next) {
+            sim_step_f32_kernel<Sh, integ, comp>
+                <<<grid, Sh::THREADS, 0, s>>>(a, in, out, t, next);
+        });
+}
+
+template <class Sh>
+int by_variant(int integ, bool comp, const Args& a, float* buf[2], int t0,
+               int t1, cudaStream_t s) {
+    using nbody::SIM_EULER;
+    using nbody::SIM_LEAPFROG;
+    if (integ == SIM_EULER)
+        return comp ? chunk<Sh, SIM_EULER, true>(a, buf, t0, t1, s)
+                    : chunk<Sh, SIM_EULER, false>(a, buf, t0, t1, s);
+    return comp ? chunk<Sh, SIM_LEAPFROG, true>(a, buf, t0, t1, s)
+                : chunk<Sh, SIM_LEAPFROG, false>(a, buf, t0, t1, s);
+}
+
+template <class Sh>
+int info(int integ, bool comp, int* out) {
+    using nbody::SIM_EULER;
+    using nbody::SIM_LEAPFROG;
+    auto of = [&](auto kernel) {
+        return nbody::kernel_info(kernel, Sh::THREADS, Sh::RB, out);
+    };
+    if (integ == SIM_EULER)
+        return comp ? of(sim_step_f32_kernel<Sh, SIM_EULER, true>)
+                    : of(sim_step_f32_kernel<Sh, SIM_EULER, false>);
+    return comp ? of(sim_step_f32_kernel<Sh, SIM_LEAPFROG, true>)
+                : of(sim_step_f32_kernel<Sh, SIM_LEAPFROG, false>);
+}
+
+bool args_ok(int n, int integrator, int compensated) {
+    return nbody::sim_chunk_args_ok(n, integrator, 0, 1)
+           && (compensated == 0 || compensated == 1);
+}
+
+}  // namespace
+
+// Steps t0 + 1 .. t1 of simulate's float32 loop on one scene of n bodies.
+// st0, st1: two buffers of SIM_SLOTS * n * 3 floats; st0 holds the state
+// in its slots q, v (and a for the leapfrog, qc, vc with compensation),
+// and the state after step t1 lies in the same slots of st0 if t1 - t0 is
+// even, else of st1. m0, mh (n,); fst (t1 + 1,) at least; G, dt, kick =
+// dt / 2 and eps2 each rounded to float32. integrator: 0 Euler, 1
+// leapfrog. One launch forms the chunk's first inputs, then one launch a
+// step; no host synchronisation. Returns the first launch error, or
+// cudaErrorInvalidValue without launching.
+extern "C" int sim_chunk_f32_launch(float* st0, float* st1, const float* m0,
+                                    const float* mh, const float* fst, int n,
+                                    int integrator, int compensated, float G,
+                                    float dt, float kick, float eps2, int t0,
+                                    int t1, void* stream) {
+    if (!args_ok(n, integrator, compensated)
+        || !nbody::sim_chunk_args_ok(n, integrator, t0, t1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const Args a{m0, mh, fst, n, 3LL * n, G, dt, kick, eps2};
+    float* buf[2] = {st0, st1};
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool comp = compensated != 0;
+    return nbody::b2_large(1, n)
+               ? by_variant<nbody::B2Large>(integrator, comp, a, buf, t0, t1,
+                                            s)
+               : by_variant<nbody::B2Small>(integrator, comp, a, buf, t0, t1,
+                                            s);
+}
+
+// What the card says of the step kernel of this variant at n bodies, in
+// the shape it takes there (forces.cuh kernel_info).
+extern "C" int sim_step_f32_info(int n, int integrator, int compensated,
+                                 int* out) {
+    if (!args_ok(n, integrator, compensated))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return nbody::b2_large(1, n)
+               ? info<nbody::B2Large>(integrator, compensated != 0, out)
+               : info<nbody::B2Small>(integrator, compensated != 0, out);
+}

@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libnbody_kernels.so")
 SOURCES = ("accel_f64.cu", "accel_f32.cu", "accel_mxu.cu", "accel_dd.cu",
            "graded_step_f64.cu", "graded_step_f32.cu", "graded_step_dd.cu",
-           "sim_step_f64.cu")
+           "sim_step_f64.cu", "sim_step_f32.cu", "sim_step_dd.cu")
 # -fmad=false: no a*b+c contraction anywhere on the fp64 path (kernels B1 and
 # B4 also spell every op as a round-to-nearest intrinsic; B4's one fused
 # multiply-add, the exact product error, is an explicit __fma_rn, which the
@@ -117,21 +117,34 @@ def load() -> ctypes.CDLL:
         ctypes.c_int,                                        # dist3
         ctypes.c_void_p,                                     # cudaStream_t
     ]
-    lib.sim_chunk_f64_launch.restype = ctypes.c_int
-    lib.sim_chunk_f64_launch.argtypes = [
-        *[ctypes.c_void_p] * 5,                  # st0, st1, m0, mh, fst
-        *[ctypes.c_int] * 4,     # n, integrator, compensated, dist3
-        *[ctypes.c_double] * 4,                  # G, dt, kick, eps2
-        ctypes.c_int, ctypes.c_int,                          # t0, t1
-        ctypes.c_void_p,                                     # cudaStream_t
-    ]
+    # simulate's step kernels: st0, st1, m0, mh, fst, n, integrator, then
+    # compensated (f64, f32) and dist3 (f64); G, dt, kick and eps2 (dd:
+    # eps2 as hi, lo); t0, t1, cudaStream_t
+    for name, ints, real, reals in (
+            ("sim_chunk_f64_launch", 4, ctypes.c_double, 4),
+            ("sim_chunk_f32_launch", 3, ctypes.c_float, 4),
+            ("sim_chunk_dd_launch", 2, ctypes.c_double, 5)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [*[ctypes.c_void_p] * 5, *[ctypes.c_int] * ints,
+                       *[real] * reals, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
     lib.div_probe_launch.restype = ctypes.c_int
     lib.div_probe_launch.argtypes = [
         *[ctypes.c_void_p] * 4,                  # n, d, want, got
         ctypes.c_int, ctypes.c_void_p,           # count, cudaStream_t
     ]
-    lib.sim_step_f64_slots.restype = ctypes.c_int
-    lib.sim_step_f64_slots.argtypes = []
+    lib.sim_step_slots.restype = ctypes.c_int
+    lib.sim_step_slots.argtypes = []
+    # what the card says of B2 and the float32 and double-double step
+    # kernels (int out[5], forces.cuh kernel_info): B2 and the f32 step at
+    # n rows, each step kernel of one variant
+    lib.accel_f32_info.restype = ctypes.c_int
+    lib.accel_f32_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.sim_step_f32_info.restype = ctypes.c_int
+    lib.sim_step_f32_info.argtypes = [*[ctypes.c_int] * 3, ctypes.c_void_p]
+    lib.sim_step_dd_info.restype = ctypes.c_int
+    lib.sim_step_dd_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
     # what the card says of a binary64 force kernel (int out[7])
     lib.accel_f64_info.restype = ctypes.c_int
     lib.accel_f64_info.argtypes = [ctypes.c_void_p]

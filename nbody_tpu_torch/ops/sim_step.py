@@ -1,16 +1,27 @@
-"""simulate()'s step loop: the eager PyTorch loop, and its binary64 kernel.
+"""simulate()'s step loops: the eager PyTorch loops, and their kernels.
 
 `eager_chunk` advances a `SimCarry` by a chunk of steps, a few PyTorch ops
-a step around one force call (ops/integrate), in every precision and on
-the mesh. `sim_chunk_f64` is the wrapper of the binary64 step kernel
-(csrc/sim_step_f64.cu), the port of what the JAX package compiles into one
-scan a chunk (`nbody_tpu.simulate._chunk_scan`) around
-`nbody_tpu.ops.pallas_forces_e64._e64_kernel`: on a CUDA carry one C call
-a chunk, one launch a step, the masses, kernel B1's force and the update
-(Euler or leapfrog, with or without Kahan compensation) in the eager
-loop's ops and order, so its bits are the eager loop's around kernel B1.
-Its plain version `sim_chunk_f64_ref` is that loop with B1's plain twin
-`accel_f64_ref` as its force; a CPU carry goes to it.
+a step around one force call (ops/integrate), in float32 and binary64 and
+on the mesh; `eager_chunk_dd` does the same in double-double (precisions
+'tf3', 'ddp', 'dd+'). The JAX package compiles a chunk into one scan
+(`nbody_tpu.simulate._chunk_scan`); on one card the port runs it in a
+step kernel, one C call a chunk and one launch a step, the masses, the
+force and the update (Euler or leapfrog, with or without Kahan
+compensation) in the eager loop's ops and order, so its bits are the
+eager loop's around the force kernel:
+
+  * `sim_chunk_f64`, csrc/sim_step_f64.cu, kernel B1's force (the port of
+    `nbody_tpu.ops.pallas_forces_e64._e64_kernel` in the scan);
+  * `sim_chunk_f32`, csrc/sim_step_f32.cu, kernel B2's force (of
+    `nbody_tpu.ops.pallas_forces._accel_kernel`);
+  * `sim_chunk_dd`, csrc/sim_step_dd.cu, kernel B4's force (of the scan
+    around `nbody_tpu.ops.forces.pairwise_accel_tf3`), without
+    compensation.
+
+On a CUDA carry each launches its kernel or raises; a CPU carry goes to
+its plain version (`sim_chunk_f64_ref`, `sim_chunk_f32_ref`,
+`sim_chunk_dd_ref`): the eager loop with the force kernel's plain twin as
+its force.
 """
 
 from __future__ import annotations
@@ -20,13 +31,16 @@ from typing import Optional
 
 import torch
 
+from . import ddfloat as ddf
+from .accel_dd import accel_dd_ref, eps2_dd
+from .accel_f32 import accel_f32_ref, eps2_f32
 from .accel_f64 import accel_f64_ref
 from .forces import DIST3_CODES
-from .integrate import accel, kdk_leapfrog_step, scalar, \
-    symplectic_euler_step
+from .integrate import accel, kdk_leapfrog_step, kdk_leapfrog_step_dd, \
+    scalar, symplectic_euler_step, symplectic_euler_step_dd
 
 INTEGRATORS = ("euler", "leapfrog")
-# the state buffer's slots of n * 3 doubles (csrc/sim_step_f64.cu SLOT_*):
+# the state buffer's slots of n * 3 values (csrc/sim_step.cuh SimSlot):
 # q, v, a, qc and vc come first
 SLOTS = 10
 
@@ -35,7 +49,8 @@ SLOTS = 10
 class SimCarry:
     """simulate's state between steps: positions, velocities, the
     leapfrog's acceleration at q (None for Euler) and the Kahan
-    compensations (None without compensation)."""
+    compensations (None without compensation). Double-double tensors carry
+    a trailing axis of 2 (ops/ddfloat)."""
     q: torch.Tensor
     v: torch.Tensor
     a: Optional[torch.Tensor] = None
@@ -50,7 +65,7 @@ def comp_add(x, c, d):
     compensation is the rounding error of t = x + y, extracted exactly by
     (t - x) - y (|y| <= |x| in the integration regime). Three eager ops:
     under torch.compile or a fused op the extraction could be simplified
-    away (the step kernel writes each as a round-to-nearest intrinsic)."""
+    away (the step kernels write each as a round-to-nearest intrinsic)."""
     y = d - c
     t = x + y
     return t, (t - x) - y
@@ -84,13 +99,49 @@ def eager_chunk(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
     c.q, c.v, c.a, c.qc, c.vc = q, v, a, qc, vc
 
 
-def _check(c: SimCarry, m0, m_half, fst, s0: int, s1: int, integrator: str,
-           compensated: bool, dist3_mode: str) -> None:
+def m_eff_dd(m0: torch.Tensor, m_half: torch.Tensor,
+             f: float) -> torch.Tensor:
+    """m0 + m_half * f in double-double, f a binary64 value."""
+    return ddf.join(ddf.add(ddf.split(m0),
+                            ddf.mul(ddf.split(m_half), ddf.const(f))))
+
+
+def eager_chunk_dd(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
+                   fst, s0: int, s1: int, *, G: float, eps: float, dt: float,
+                   integrator: str, force=None) -> None:
+    """Steps s0+1..s1 of simulate's double-double loop on c (q, v, a (n, 3,
+    2)), in place: step s runs under m_eff = m0 + m_half * fst[s] (m0,
+    m_half (n, 2), fst host binary64 floats) and the force of
+    ops/integrate.accel_dd_state, or `force(q, gm)`."""
+    kw = {"G": G, "eps": eps, "dt": dt, "force": force}
+    q, v, a = c.q, c.v, c.a
+    for s in range(s0 + 1, s1 + 1):
+        m_eff = m_eff_dd(m0, m_half, fst[s])
+        if integrator == "leapfrog":
+            q, v, a = kdk_leapfrog_step_dd(q, v, a, m_eff, **kw)
+        else:
+            q, v = symplectic_euler_step_dd(q, v, m_eff, **kw)
+    c.q, c.v, c.a = q, v, a
+
+
+@dataclasses.dataclass(frozen=True)
+class _Kind:
+    """A step kernel's representation: the dtype of its tensors and the
+    trailing axes of a value (a double-double one is (2,))."""
+    name: str
+    dtype: torch.dtype
+    tail: tuple = ()
+
+
+_F64 = _Kind("sim_chunk_f64", torch.float64)
+_F32 = _Kind("sim_chunk_f32", torch.float32)
+_DD = _Kind("sim_chunk_dd", torch.float64, (2,))
+
+
+def _check(kind: _Kind, c: SimCarry, m0, m_half, fst, s0: int, s1: int,
+           integrator: str, compensated: bool) -> None:
     if integrator not in INTEGRATORS:
         raise ValueError(f"unknown integrator: {integrator}")
-    if dist3_mode not in DIST3_CODES:
-        raise ValueError(f"dist3_mode must be one of {sorted(DIST3_CODES)}, "
-                         f"got {dist3_mode!r}")
     want = {"q": True, "v": True, "a": integrator == "leapfrog",
             "qc": compensated, "vc": compensated}
     state = {k: getattr(c, k) for k in want}
@@ -101,26 +152,78 @@ def _check(c: SimCarry, m0, m_half, fst, s0: int, s1: int, integrator: str,
                              f"compensation {'needs' if needed else 'has no'}"
                              f" {k}")
     tensors = [x for x in state.values() if x is not None]
-    tensors += [m0, m_half, fst]
-    if any(x.dtype != torch.float64 for x in tensors):
-        raise TypeError(f"sim_chunk_f64 takes float64 tensors, got "
-                        f"{[x.dtype for x in tensors]}")
+    if any(x.dtype != kind.dtype for x in tensors + [m0, m_half]):
+        raise TypeError(f"{kind.name} takes {kind.dtype} tensors, got "
+                        f"{[x.dtype for x in tensors + [m0, m_half]]}")
+    if fst.dtype != (torch.float32 if kind is _F32 else torch.float64):
+        raise TypeError(f"{kind.name} takes a table fst of the state's "
+                        f"(binary64 for double-double), got {fst.dtype}")
+    tensors.append(fst)
     n = c.q.shape[0]
-    if (any(x.shape != (n, 3) for x in state.values() if x is not None)
-            or n < 1 or m0.shape != (n,) or m_half.shape != (n,)
-            or fst.dim() != 1):
-        raise ValueError(f"sim_chunk_f64 takes a state of (n, 3), n >= 1, "
-                         f"masses (n,) and a table fst, got q "
-                         f"{tuple(c.q.shape)}, m0 {tuple(m0.shape)}, m_half "
-                         f"{tuple(m_half.shape)}, fst {tuple(fst.shape)}")
+    if (any(x.shape != (n, 3) + kind.tail for x in state.values()
+            if x is not None)
+            or n < 1 or m0.shape != (n,) + kind.tail
+            or m_half.shape != (n,) + kind.tail or fst.dim() != 1):
+        raise ValueError(f"{kind.name} takes a state of {(n, 3) + kind.tail}"
+                         f", n >= 1, masses {(n,) + kind.tail} and a table "
+                         f"fst, got q {tuple(c.q.shape)}, m0 "
+                         f"{tuple(m0.shape)}, m_half {tuple(m_half.shape)}, "
+                         f"fst {tuple(fst.shape)}")
     if not 0 <= s0 < s1 < fst.shape[0]:
         raise ValueError(f"steps {s0}+1..{s1} need 0 <= s0 < s1 < "
                          f"len(fst) = {fst.shape[0]}")
-    if any(x.device != c.q.device for x in tensors):
-        raise ValueError(f"sim_chunk_f64 takes tensors on one device, got "
-                         f"{[str(x.device) for x in tensors]}")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("sim_chunk_f64 takes contiguous tensors")
+    if any(x.device != c.q.device for x in tensors + [m0, m_half]):
+        raise ValueError(f"{kind.name} takes tensors on one device, got "
+                         f"{[str(x.device) for x in tensors + [m0, m_half]]}")
+    if not all(x.is_contiguous() for x in tensors + [m0, m_half]):
+        raise ValueError(f"{kind.name} takes contiguous tensors")
+
+
+def _check_dist3(dist3_mode: str) -> None:
+    if dist3_mode not in DIST3_CODES:
+        raise ValueError(f"dist3_mode must be one of {sorted(DIST3_CODES)}, "
+                         f"got {dist3_mode!r}")
+
+
+def _on_cpu(c: SimCarry, name: str) -> bool:
+    """Whether the carry goes to the plain version; a carry on neither the
+    CPU nor CUDA is refused."""
+    if c.q.device.type == "cpu":
+        return True
+    if c.q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {c.q.device}")
+    return False
+
+
+def _launch(wrapper, c: SimCarry, s0: int, s1: int, launch) -> None:
+    """A step kernel's chunk on a CUDA carry: the state into the slots of
+    the first of a ping-pong pair of state buffers, launch(st0, st1,
+    stream) (the kernel's C call, which returns its CUDA error), the
+    launches added to `wrapper.launches`, and the state read from the
+    buffer that holds step s1."""
+    from . import _build
+
+    lib = _build.load()
+    if lib.sim_step_slots() != SLOTS:
+        raise RuntimeError(f"the step kernels' state buffer has "
+                           f"{lib.sim_step_slots()} slots, not {SLOTS}")
+    st = c.q.new_empty((2, SLOTS) + tuple(c.q.shape))
+    for slot, x in enumerate((c.q, c.v, c.a, c.qc, c.vc)):
+        if x is not None:
+            st[0, slot] = x
+    with torch.cuda.device(c.q.device):
+        rc = launch(lib, st[0].data_ptr(), st[1].data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
+                           f"error {rc}")
+    wrapper.launches += s1 - s0 + 1
+    out = st[(s1 - s0) % 2]
+    c.q, c.v = out[0], out[1]
+    if c.a is not None:
+        c.a = out[2]
+    if c.qc is not None:
+        c.qc, c.vc = out[3], out[4]
 
 
 def sim_chunk_f64_ref(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
@@ -130,7 +233,8 @@ def sim_chunk_f64_ref(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
     """Plain PyTorch version of the binary64 step kernel: the eager loop
     (`eager_chunk`) with kernel B1's plain twin as its force, on c in
     place, on any device."""
-    _check(c, m0, m_half, fst, s0, s1, integrator, compensated, dist3_mode)
+    _check(_F64, c, m0, m_half, fst, s0, s1, integrator, compensated)
+    _check_dist3(dist3_mode)
 
     def force(q, gm):
         return accel_f64_ref(q[None], q[None], gm[None], eps=eps,
@@ -153,43 +257,107 @@ def sim_chunk_f64(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
     A CUDA carry runs the step kernel: one C call, s1 - s0 step launches
     and one launch that forms the chunk's first inputs, all added to
     `sim_chunk_f64.launches`; a CPU carry runs `sim_chunk_f64_ref`."""
-    _check(c, m0, m_half, fst, s0, s1, integrator, compensated, dist3_mode)
-    dev = c.q.device
-    if dev.type == "cpu":
+    _check(_F64, c, m0, m_half, fst, s0, s1, integrator, compensated)
+    _check_dist3(dist3_mode)
+    if _on_cpu(c, "sim_chunk_f64"):
         sim_chunk_f64_ref(c, m0, m_half, fst, s0, s1, G=G, eps=eps, dt=dt,
                           integrator=integrator, compensated=compensated,
                           dist3_mode=dist3_mode)
         return
-    if dev.type != "cuda":
-        raise ValueError(f"sim_chunk_f64 runs on cuda or cpu, not {dev}")
-    from . import _build
-
-    lib = _build.load()
-    if lib.sim_step_f64_slots() != SLOTS:
-        raise RuntimeError("the step kernel's state buffer has "
-                           f"{lib.sim_step_f64_slots()} slots, not {SLOTS}")
-    n = c.q.shape[0]
-    st = torch.empty((2, SLOTS, n, 3), dtype=torch.float64, device=dev)
-    for slot, x in enumerate((c.q, c.v, c.a, c.qc, c.vc)):
-        if x is not None:
-            st[0, slot] = x
-    with torch.cuda.device(dev):
-        rc = lib.sim_chunk_f64_launch(
-            st[0].data_ptr(), st[1].data_ptr(), m0.data_ptr(),
-            m_half.data_ptr(), fst.data_ptr(), n,
-            INTEGRATORS.index(integrator), int(compensated),
-            DIST3_CODES[dist3_mode], G, dt, 0.5 * dt, eps * eps, s0, s1,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"sim_chunk_f64 kernel launch failed: CUDA error "
-                           f"{rc}")
-    sim_chunk_f64.launches += s1 - s0 + 1
-    out = st[(s1 - s0) % 2]
-    c.q, c.v = out[0], out[1]
-    if c.a is not None:
-        c.a = out[2]
-    if compensated:
-        c.qc, c.vc = out[3], out[4]
+    _launch(sim_chunk_f64, c, s0, s1, lambda lib, st0, st1, stream:
+            lib.sim_chunk_f64_launch(
+                st0, st1, m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(),
+                c.q.shape[0], INTEGRATORS.index(integrator),
+                int(compensated), DIST3_CODES[dist3_mode], G, dt, 0.5 * dt,
+                eps * eps, s0, s1, stream))
 
 
 sim_chunk_f64.launches = 0
+
+
+def sim_chunk_f32_ref(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
+                      fst: torch.Tensor, s0: int, s1: int, *, G: float,
+                      eps: float, dt: float, integrator: str,
+                      compensated: bool) -> None:
+    """Plain PyTorch version of the float32 step kernel: the eager loop
+    (`eager_chunk`) with kernel B2's plain twin as its force, on c in
+    place, on any device."""
+    _check(_F32, c, m0, m_half, fst, s0, s1, integrator, compensated)
+
+    def force(q, gm):
+        return accel_f32_ref(q, q, gm, eps=eps)
+
+    eager_chunk(c, m0, m_half, fst.tolist(), s0, s1, G=G, eps=eps, dt=dt,
+                integrator=integrator, compensated=compensated, force=force)
+
+
+def sim_chunk_f32(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
+                  fst: torch.Tensor, s0: int, s1: int, *, G: float,
+                  eps: float, dt: float, integrator: str,
+                  compensated: bool) -> None:
+    """Steps s0+1..s1 of simulate's float32 loop on the carry c (q, v (n,
+    3) float32; a for the leapfrog, qc and vc with compensation), in place,
+    under m_eff = m0 + m_half * fst[s] (fst the oscillation table (steps +
+    1,) as a float32 tensor); G, dt, dt / 2 and eps^2 rounded to float32
+    as the eager loop rounds them.
+
+    A CUDA carry runs the step kernel: one C call, s1 - s0 step launches
+    and one launch that forms the chunk's first inputs, all added to
+    `sim_chunk_f32.launches`; a CPU carry runs `sim_chunk_f32_ref`."""
+    _check(_F32, c, m0, m_half, fst, s0, s1, integrator, compensated)
+    if _on_cpu(c, "sim_chunk_f32"):
+        sim_chunk_f32_ref(c, m0, m_half, fst, s0, s1, G=G, eps=eps, dt=dt,
+                          integrator=integrator, compensated=compensated)
+        return
+    f32 = torch.float32
+    _launch(sim_chunk_f32, c, s0, s1, lambda lib, st0, st1, stream:
+            lib.sim_chunk_f32_launch(
+                st0, st1, m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(),
+                c.q.shape[0], INTEGRATORS.index(integrator),
+                int(compensated), scalar(G, f32), scalar(dt, f32),
+                scalar(0.5 * dt, f32), eps2_f32(eps), s0, s1, stream))
+
+
+sim_chunk_f32.launches = 0
+
+
+def sim_chunk_dd_ref(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
+                     fst: torch.Tensor, s0: int, s1: int, *, G: float,
+                     eps: float, dt: float, integrator: str) -> None:
+    """Plain PyTorch version of the double-double step kernel: the eager
+    loop (`eager_chunk_dd`) with kernel B4's plain twin as its force, on c
+    in place, on any device."""
+    _check(_DD, c, m0, m_half, fst, s0, s1, integrator, False)
+
+    def force(q, gm):
+        return accel_dd_ref(q[None], q[None], gm[None], eps=eps)[0]
+
+    eager_chunk_dd(c, m0, m_half, fst.tolist(), s0, s1, G=G, eps=eps, dt=dt,
+                   integrator=integrator, force=force)
+
+
+def sim_chunk_dd(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
+                 fst: torch.Tensor, s0: int, s1: int, *, G: float,
+                 eps: float, dt: float, integrator: str) -> None:
+    """Steps s0+1..s1 of simulate's double-double loop on the carry c (q,
+    v (n, 3, 2) float64 pairs (hi, lo); a for the leapfrog; no
+    compensation), in place, under m_eff = m0 + m_half * fst[s] (m0,
+    m_half (n, 2), fst the oscillation table (steps + 1,) as a float64
+    tensor); G and dt binary64 values.
+
+    A CUDA carry runs the step kernel: one C call, s1 - s0 step launches
+    and one launch that forms the chunk's first inputs, all added to
+    `sim_chunk_dd.launches`; a CPU carry runs `sim_chunk_dd_ref`."""
+    _check(_DD, c, m0, m_half, fst, s0, s1, integrator, False)
+    if _on_cpu(c, "sim_chunk_dd"):
+        sim_chunk_dd_ref(c, m0, m_half, fst, s0, s1, G=G, eps=eps, dt=dt,
+                         integrator=integrator)
+        return
+    _launch(sim_chunk_dd, c, s0, s1, lambda lib, st0, st1, stream:
+            lib.sim_chunk_dd_launch(
+                st0, st1, m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(),
+                c.q.shape[0], INTEGRATORS.index(integrator), G, dt,
+                0.5 * dt, *eps2_dd(eps), s0, s1, stream))
+
+
+sim_chunk_dd.launches = 0

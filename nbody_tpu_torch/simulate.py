@@ -9,15 +9,16 @@ precision:
                      integrator="leapfrog", device="cuda", on_chunk=callback)
 
 The port of `nbody_tpu.simulate.simulate`, on one device or over a mesh of
-ranks (`mesh`). In binary64 on one device a chunk goes to the binary64
-step kernel's wrapper (ops/sim_step.sim_chunk_f64): on a card one C call,
-one launch a step; on the CPU its plain version. Elsewhere each step is a
-few eager PyTorch ops around one force-kernel launch
-(ops/sim_step.eager_chunk; on the mesh: the kernel's cross form on this
-rank's rows and a gather, or the ordered ring), with the same bits as the
-step kernel in binary64. `chunk` sets how often the host reads the
-state back for `on_chunk` and never changes the arithmetic, so results are
-bitwise invariant to it.
+ranks (`mesh`). On one device a chunk goes to the step kernel's wrapper
+of its precision (ops/sim_step: `sim_chunk_f32`, `sim_chunk_f64`,
+`sim_chunk_dd`): on a card one C call, one launch a step, as the JAX
+package compiles a chunk into one scan; on the CPU its plain version. On
+the mesh each step is a few eager PyTorch ops around the force
+(ops/sim_step.eager_chunk, eager_chunk_dd: the force kernel's cross form
+on this rank's rows and a gather, or the ordered ring), with the same bits
+as the step kernels on one device. `chunk` sets how often the host reads
+the state back for `on_chunk` and never changes the arithmetic, so
+results are bitwise invariant to it.
 """
 
 from __future__ import annotations
@@ -33,9 +34,9 @@ from .device import resolve_device
 from .io import Scene
 from .ops import ddfloat as ddf
 from .ops.forces import check_dist3
-from .ops.integrate import accel, accel_dd_state, kdk_leapfrog_step_dd, \
-    symplectic_euler_step_dd
-from .ops.sim_step import SimCarry, eager_chunk, sim_chunk_f64
+from .ops.integrate import accel, accel_dd_state
+from .ops.sim_step import SimCarry, eager_chunk, eager_chunk_dd, m_eff_dd, \
+    sim_chunk_dd, sim_chunk_f32, sim_chunk_f64
 from .physics import oscillation_table
 from .utils.rescale import IDENTITY, compute_rescale
 
@@ -75,7 +76,8 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
     precision:
       'f32'        — float32 state on the scene rescaled by powers of two
                      (utils/rescale: graded scenes overflow float32), force
-                     kernel B2 (ops/accel_f32).
+                     kernel B2 (ops/accel_f32; on one card inside the
+                     float32 step kernel, ops/sim_step).
       'f64', 'e64' — native IEEE binary64, force kernel B1 with the serial
                      fold (ops/accel_f64; on one card inside the binary64
                      step kernel, ops/sim_step), d2^1.5 in cfg.dist3_mode's
@@ -91,7 +93,8 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
                      exact and changes no bit, so the port leaves it out.
       'tf3', 'ddp', 'dd+' — beyond binary64: double-double state and
                      update (ops/ddfloat, about 2^-104 an operation) around
-                     force kernel B4 (ops/accel_dd), on the raw scene. The
+                     force kernel B4 (ops/accel_dd; on one card inside the
+                     double-double step kernel), on the raw scene. The
                      JAX package runs triple-float32 there (about 2^-70),
                      for want of binary64 on a TPU.
     integrator: 'euler' (the graded spec's semi-implicit Euler) or
@@ -173,8 +176,8 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
                             force=force)
 
     # the oscillation table as host scalars of the state's dtype: each step
-    # scales the device half-masses by one of them (the binary64 step
-    # kernel reads the same values from a device table)
+    # scales the device half-masses by one of them (the step kernels read
+    # the same values from a device table)
     table = oscillation_table(run_cfg, n_steps).astype(np_dtype)
     fst = table.tolist()
     mask = run_scene.device_mask()
@@ -205,15 +208,20 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
     if compensated:
         c.qc, c.vc = torch.zeros_like(c.q), torch.zeros_like(c.v)
     kw = {"G": G, "eps": eps, "dt": dt, "integrator": integrator,
-          "compensated": compensated, "dist3_mode": dist3}
-    if precision in _BINARY64 and layout is None:
+          "compensated": compensated}
+    if layout is None:
         fst_t = torch.from_numpy(table).to(dev)
-
-        def advance(s0, s1):
-            sim_chunk_f64(c, m0t, m_halft, fst_t, s0, s1, **kw)
+        if precision == "f32":
+            def advance(s0, s1):
+                sim_chunk_f32(c, m0t, m_halft, fst_t, s0, s1, **kw)
+        else:
+            def advance(s0, s1):
+                sim_chunk_f64(c, m0t, m_halft, fst_t, s0, s1,
+                              dist3_mode=dist3, **kw)
     else:
         def advance(s0, s1):
-            eager_chunk(c, m0t, m_halft, fst, s0, s1, force=force, **kw)
+            eager_chunk(c, m0t, m_halft, fst, s0, s1, force=force,
+                        dist3_mode=dist3, **kw)
 
     step = 0
     while step < n_steps:
@@ -240,43 +248,47 @@ def _simulate_dd(scene: Scene, cfg: SimConfig, *, n_steps: int,
                  on_chunk: Optional[Callable[[SimState], None]],
                  force=None) -> SimState:
     """simulate() in double-double: the state, masses and update in
-    ops/ddfloat's arithmetic around one kernel B4 launch a step (or the
-    mesh's `force`), on the raw scene; the host sees hi + lo rounded to
+    ops/ddfloat's arithmetic around kernel B4's force, on one device in
+    the double-double step kernel (sim_chunk_dd), on the mesh eager ops
+    around its `force`, on the raw scene; the host sees hi + lo rounded to
     binary64."""
-    fst = oscillation_table(cfg, n_steps).tolist()
+    table = oscillation_table(cfg, n_steps)
     mask = scene.device_mask()
     m0 = scene.m * (1.0 if devices_on else (1.0 - mask))
 
     def put(x):
         return ddf.from_f64(np.asarray(x, dtype=np.float64)).to(device)
 
-    q, v = put(scene.q), put(scene.v)
-    m0t, m_halft = ddf.split(put(m0)), ddf.split(put(0.5 * m0 * mask))
+    c = SimCarry(put(scene.q), put(scene.v))
+    m0t, m_halft = put(m0), put(0.5 * m0 * mask)
     G, eps, dt = cfg.G, cfg.eps, cfg.dt
 
-    def m_eff(s: int) -> torch.Tensor:
-        return ddf.join(ddf.add(m0t, ddf.mul(m_halft, ddf.const(fst[s]))))
-
     def host_state(step):
-        qs, vs = (ddf.two_sum(x[..., 0], x[..., 1]) for x in (q, v))
+        qs, vs = (ddf.two_sum(x[..., 0], x[..., 1]) for x in (c.q, c.v))
         return SimState(step=step, q=qs.hi.cpu().numpy(),
                         v=vs.hi.cpu().numpy(), q_lo=qs.lo.cpu().numpy(),
                         v_lo=vs.lo.cpu().numpy())
 
-    a = None
     if integrator == "leapfrog":
-        a = accel_dd_state(q, m_eff(min(1, n_steps)), G=G, eps=eps,
-                           force=force)
+        c.a = accel_dd_state(c.q, m_eff_dd(m0t, m_halft,
+                                           float(table[min(1, n_steps)])),
+                             G=G, eps=eps, force=force)
+    kw = {"G": G, "eps": eps, "dt": dt, "integrator": integrator}
+    if force is None:
+        fst_t = torch.from_numpy(table).to(device)
+
+        def advance(s0, s1):
+            sim_chunk_dd(c, m0t, m_halft, fst_t, s0, s1, **kw)
+    else:
+        fst = table.tolist()
+
+        def advance(s0, s1):
+            eager_chunk_dd(c, m0t, m_halft, fst, s0, s1, force=force, **kw)
+
     step = 0
     while step < n_steps:
         n_sub = min(chunk, n_steps - step)
-        for s in range(step + 1, step + n_sub + 1):
-            if integrator == "leapfrog":
-                q, v, a = kdk_leapfrog_step_dd(q, v, a, m_eff(s), G=G,
-                                               eps=eps, dt=dt, force=force)
-            else:
-                q, v = symplectic_euler_step_dd(q, v, m_eff(s), G=G,
-                                                eps=eps, dt=dt, force=force)
+        advance(step, step + n_sub)
         step += n_sub
         if on_chunk is not None:
             on_chunk(host_state(step))

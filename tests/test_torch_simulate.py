@@ -157,9 +157,11 @@ def test_on_chunk_and_checkpoint_resume(tmp_path):
     ("f64", "euler", STEPS), ("f64", "leapfrog", STEPS + 1)])
 def test_force_goes_through_the_kernel_wrappers(monkeypatch, precision,
                                                 integrator, force_calls):
-    """f32 calls kernel B2's wrapper once per step; f64 the binary64 step
-    kernel's wrapper once a chunk, each of whose steps runs kernel B1's
-    force, and B1's wrapper (as a batch of 1) for the leapfrog seed."""
+    """f32 calls the float32 step kernel's wrapper once a chunk, each of
+    whose steps runs kernel B2's force, and B2's wrapper for the leapfrog
+    seed; f64 the binary64 step kernel's wrapper once a chunk, each of
+    whose steps runs kernel B1's force, and B1's wrapper (as a batch of 1)
+    for the leapfrog seed."""
     calls = {"f32": 0, "f64": 0}
 
     def spy(name, fn):
@@ -168,9 +170,9 @@ def test_force_goes_through_the_kernel_wrappers(monkeypatch, precision,
             return fn(*args, **kw)
         return wrapped
 
-    def chunk_spy(fn):
+    def chunk_spy(name, fn):
         def wrapped(c, m0, m_half, fst, s0, s1, **kw):
-            calls["f64"] += s1 - s0
+            calls[name] += s1 - s0
             return fn(c, m0, m_half, fst, s0, s1, **kw)
         return wrapped
 
@@ -179,8 +181,10 @@ def test_force_goes_through_the_kernel_wrappers(monkeypatch, precision,
                         spy("f32", integrate.accel_f32_self))
     monkeypatch.setattr(integrate, "accel_f64",
                         spy("f64", integrate.accel_f64))
-    monkeypatch.setattr(sim_module, "sim_chunk_f64",
-                        chunk_spy(sim_module.sim_chunk_f64))
+    for name in ("f32", "f64"):
+        monkeypatch.setattr(sim_module, f"sim_chunk_{name}",
+                            chunk_spy(name, getattr(sim_module,
+                                                    f"sim_chunk_{name}")))
     simulate(_port(_fuzz_scene(6)), CFG, n_steps=STEPS, precision=precision,
              device="cpu", integrator=integrator)
     other = "f64" if precision == "f32" else "f32"

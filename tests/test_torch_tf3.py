@@ -22,6 +22,7 @@ graded answers against JAX 'tf3'.
 """
 
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -32,7 +33,7 @@ from nbody_tpu_torch import Scene, SimConfig, SimState, simulate, \
 from nbody_tpu_torch.models import direct_sum as ds
 from nbody_tpu_torch.ops import ddfloat as ddf
 from nbody_tpu_torch.ops import graded_step as gs
-from nbody_tpu_torch.ops import integrate
+from nbody_tpu_torch.ops import integrate, sim_step
 from nbody_tpu_torch.physics import oscillation_table
 from test_fuzz_differential import _fuzz_scene
 from test_torch_accel_dd import _tf3_to_dd
@@ -169,17 +170,26 @@ def test_on_chunk_sees_the_binary64_rounding_and_the_rest():
                                               ("leapfrog", STEPS + 1)])
 def test_simulate_tf3_goes_through_kernel_b4(monkeypatch, integrator,
                                               calls):
+    """Every step's force is kernel B4's, inside the double-double step
+    kernel's wrapper (once a chunk); B4's own wrapper runs the leapfrog's
+    seed alone, and kernel B1 never runs."""
     seen = []
-    orig = integrate.accel_dd
+    orig, orig_chunk = integrate.accel_dd, sim_step.sim_chunk_dd
 
     def spy(qi, qj, gm, *, eps):
         seen.append(qi.shape)
         return orig(qi, qj, gm, eps=eps)
 
+    def chunk_spy(c, m0, m_half, fst, s0, s1, **kw):
+        seen.extend([c.q[None].shape] * (s1 - s0))
+        return orig_chunk(c, m0, m_half, fst, s0, s1, **kw)
+
     monkeypatch.setattr(integrate, "accel_dd", spy)
     monkeypatch.setattr(integrate, "accel_f64", None)
+    monkeypatch.setattr(sys.modules["nbody_tpu_torch.simulate"],
+                        "sim_chunk_dd", chunk_spy)
     simulate(_port(_fuzz_scene(6)), n_steps=STEPS, precision="tf3",
-             device="cpu", integrator=integrator)
+             device="cpu", integrator=integrator, chunk=7)
     assert seen == [(1, 16, 3, 2)] * calls
 
 

@@ -143,6 +143,35 @@ def simulate_routes(axes: dict, scene, n_steps: int) -> dict:
     return counts
 
 
+def simulate_step_routes(axes: dict, scene, n_steps: int,
+                         precision: str) -> dict:
+    """Calls on this rank of the one-device step kernels' wrappers and of
+    the mesh's force (the ordered ring in 'f32', kernel B4's cross form in
+    'tf3') in a `precision` Euler simulate() of n_steps on one mesh."""
+    import sys
+
+    from nbody_tpu_torch import simulate
+    from nbody_tpu_torch.parallel import solver_sharded
+
+    sim_module = sys.modules["nbody_tpu_torch.simulate"]
+    counts = dict.fromkeys(("sim_chunk_f64", "sim_chunk_f32", "sim_chunk_dd",
+                            "ring_accel_ordered", "accel_dd"), 0)
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            counts[name] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    for name in ("sim_chunk_f64", "sim_chunk_f32", "sim_chunk_dd"):
+        setattr(sim_module, name, spy(name, getattr(sim_module, name)))
+    for name in ("ring_accel_ordered", "accel_dd"):
+        setattr(solver_sharded, name, spy(name, getattr(solver_sharded,
+                                                        name)))
+    simulate(scene, mesh=_mesh(axes), n_steps=n_steps, precision=precision)
+    return counts
+
+
 def ring_jobs(axes: dict, q: np.ndarray, v: np.ndarray, m: np.ndarray,
               G: float, eps: float, dt: float, m_half: np.ndarray,
               fst: np.ndarray) -> dict:
