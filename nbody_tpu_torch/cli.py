@@ -71,32 +71,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "bitwise the one-device ones. Example: --mesh "
                         "scen=2,body=-1")
     p.add_argument("--tile", type=int, default=None,
-                   help="the f32 mesh's force tile in bodies (default 128, "
-                        "the fp32 kernel's tile, where the answers are "
-                        "bitwise the one-device f32 ones); one tile gives "
-                        "bitwise the same answers on every mesh shape. "
-                        "Binary64 and tf3 split rows and ignore it. Needs "
-                        "--mesh")
+                   help="the f32 mesh's force tile in bodies: the force "
+                        "sums one partial per group of this many sources, "
+                        "in ascending order (default 128, the fp32 "
+                        "kernel's tile, where the answers are bitwise the "
+                        "one-device f32 ones); one tile gives bitwise the "
+                        "same answers on every mesh shape. Any positive "
+                        "count: nothing is padded. Binary64 and tf3 ignore "
+                        "it. Needs --mesh")
     return p
-
-
-def read_input_header_n(path: str) -> int:
-    """The body count of a testcase header (cheap CLI pre-checks), read as
-    io.read_input tokenizes it."""
-    from .io import SceneFormatError
-    with open(path) as f:
-        tokens = f.read().split()
-    if not tokens:
-        raise SceneFormatError(f"{path}: missing header")
-    return int(tokens[0])
 
 
 def check_mesh_args(args, world: int) -> dict | None:
     """The mesh's {axis: size} of parsed CLI args, after the refusals
     (SystemExit): --mesh with 'exact', a --tile below 1 or without
-    --mesh, a mesh of another size than the `world` ranks, and a float32
-    tile that would pad the scene to more than twice what the default
-    tile pads it to."""
+    --mesh, and a mesh of another size than the `world` ranks."""
     if args.tile is not None and args.tile < 1:
         raise SystemExit(f"--tile must be a positive row count, got "
                          f"{args.tile}")
@@ -111,21 +100,9 @@ def check_mesh_args(args, world: int) -> dict | None:
     from .parallel.mesh import mesh_sizes, parse_mesh_spec
     try:
         axes = parse_mesh_spec(args.mesh)
-        _, body = mesh_sizes(axes, world)
+        mesh_sizes(axes, world)
     except ValueError as e:
         raise SystemExit(str(e))
-    if args.tile is not None and args.precision == "f32":
-        from .parallel.sharded import TILE
-        n = read_input_header_n(args.input)
-
-        def padded(tile: int) -> int:
-            return -(-n // (body * tile)) * body * tile
-        if padded(args.tile) > 2 * padded(TILE):
-            raise SystemExit(
-                f"--tile {args.tile} would pad the scene from {n} to "
-                f"{padded(args.tile)} bodies on a body={body} mesh (each "
-                f"rank's rows round up to a tile multiple); the default "
-                f"tile {TILE} pads it to {padded(TILE)}")
     return axes
 
 
@@ -175,13 +152,15 @@ def _solve(args, cfg, device, mesh) -> int:
     from .ops.accel_f64 import accel_f64
     from .ops.graded_step import graded_step_dd, graded_step_f32, \
         graded_step_f64
-    from .ops.sim_step import sim_chunk_dd, sim_chunk_f32, sim_chunk_f64
+    from .ops.sim_step import sim_chunk_dd, sim_chunk_f32, sim_chunk_f64, \
+        sim_rows_chunk_dd, sim_rows_chunk_f32, sim_rows_chunk_f64
     from .utils.profiling import PhaseTimers, pair_interactions
 
     timers = PhaseTimers(device)
     kernels = (accel_f64, accel_f32, accel_dd, graded_step_f64,
                graded_step_f32, graded_step_dd, sim_chunk_f64, sim_chunk_f32,
-               sim_chunk_dd)
+               sim_chunk_dd, sim_rows_chunk_f64, sim_rows_chunk_f32,
+               sim_rows_chunk_dd)
     launches0 = [k.launches for k in kernels]
     t0 = time.perf_counter()
     with timers.phase("read_input"):

@@ -68,6 +68,59 @@ inline bool b2_large(int B, int ni) {
            >= B2_LARGE_MIN_BLOCKS;
 }
 
+// The source tiles of a float32 sum and the order their sums are added
+// in. B2Tiles: B2's own, 128-wide tiles from source 0, each tile sum added
+// to the row. GroupTiles: the mesh's ordered sum at tile T
+// (parallel/sharded.ring_accel_ordered): groups of T sources from 0 (the
+// last one ragged), each cut into sub-tiles of 128 from its first source
+// (the last ragged at the group's end), each sub-tile folded from 0 and
+// its sum added to the group's partial from +0, the group partials added
+// to the row from 0 in ascending order. At T = 128 each group is one tile
+// and its partial the tile sum (0 + p = p: a tile sum starts at +0 and is
+// never -0), so the two sums are one. A tile is a sub-tile below.
+struct B2Tiles {
+    static constexpr bool grouped = false;
+    int nj;
+    __device__ __forceinline__ static B2Tiles of(int nj, int) {
+        return {nj};
+    }
+    __device__ __forceinline__ int count() const {
+        return (nj + B2_TJ - 1) / B2_TJ;
+    }
+    __device__ __forceinline__ int start(int s) const { return s * B2_TJ; }
+    __device__ __forceinline__ int len(int s) const {
+        return min(B2_TJ, nj - s * B2_TJ);
+    }
+    __device__ __forceinline__ bool ends_group(int) const { return true; }
+};
+
+struct GroupTiles {
+    static constexpr bool grouped = true;
+    int nj, T, U;   // U: the sub-tiles of a whole group, ceil(T / 128)
+    __device__ __forceinline__ static GroupTiles of(int nj, int T) {
+        return {nj, T, (T + B2_TJ - 1) / B2_TJ};
+    }
+    __device__ __forceinline__ int count() const {
+        const int last = (nj - 1) / T;   // the last group, maybe ragged
+        return last * U + (nj - last * T + B2_TJ - 1) / B2_TJ;
+    }
+    __device__ __forceinline__ int start(int s) const {
+        const int g = s / U;
+        return g * T + (s - g * U) * B2_TJ;
+    }
+    // the end of sub-tile s's group (its last sub-tile ends there)
+    __device__ __forceinline__ int group_end(int s) const {
+        return min((s / U + 1) * T, nj);
+    }
+    __device__ __forceinline__ int len(int s) const {
+        const int j0 = start(s);
+        return min(B2_TJ, group_end(s) - j0);
+    }
+    __device__ __forceinline__ bool ends_group(int s) const {
+        return start(s) + B2_TJ >= group_end(s);
+    }
+};
+
 // Copy the sources [j0, j0 + cnt) of a round into the staged layout: tile
 // k of the round at buf[k * B2_STRIDE], one float4 (x, y, z, gm) a source.
 template <class S>
@@ -84,31 +137,63 @@ __device__ __forceinline__ void b2_stage(float4* buf, const float* qj,
     }
 }
 
+// Stage round rd's tiles of `tiles` (nsub of them) into buf: tile k of
+// the round at buf[k * B2_STRIDE]. B2's tiles are one run of sources; a
+// grouped round's tiles go one at a time, each from its own first source.
+template <class S, class Tiles>
+__device__ __forceinline__ void b2_stage_round(float4* buf, const float* qj,
+                                               const float* gmj,
+                                               const Tiles& tl, int rd,
+                                               int nsub) {
+    if constexpr (!Tiles::grouped) {
+        const int j0 = rd * S::SPAN;
+        b2_stage<S>(buf, qj, gmj, j0, min(S::SPAN, tl.nj - j0));
+    } else {
+        for (int w = 0; w < S::TPR && rd * S::TPR + w < nsub; ++w) {
+            const int s = rd * S::TPR + w;
+            b2_stage<S>(buf + w * B2_STRIDE, qj, gmj, tl.start(s), tl.len(s));
+        }
+    }
+}
+
 // The owners' share of a round: each (row, component) adds the round's
-// tile sums, in ascending tile order, to its register.
-template <class S>
+// tile sums, in ascending tile order, to its register; in a grouped sum
+// to its group partial grp, which goes into acc at the group's end.
+template <class S, class Tiles>
 __device__ __forceinline__ void b2_add_tile_sums(
-        float (*part)[3][S::RB], int round, int nj,
-        float (&acc)[S::OWN]) {
+        float (*part)[3][S::RB], int round, const Tiles& tl, int nsub,
+        float (&acc)[S::OWN], float (&grp)[S::OWN]) {
 #pragma unroll
     for (int k = 0; k < S::OWN; ++k) {
         const int o = threadIdx.x + k * S::THREADS;
         if (o < 3 * S::RB)
-            for (int tt = 0; tt < S::TPR
-                 && (round * S::TPR + tt) * B2_TJ < nj; ++tt)
-                acc[k] += part[tt][o / S::RB][o % S::RB];
+            for (int tt = 0; tt < S::TPR && round * S::TPR + tt < nsub;
+                 ++tt) {
+                const float p = part[tt][o / S::RB][o % S::RB];
+                if constexpr (!Tiles::grouped) {
+                    acc[k] += p;
+                } else {
+                    grp[k] += p;
+                    if (tl.ends_group(round * S::TPR + tt)) {
+                        acc[k] += grp[k];
+                        grp[k] = 0.0f;
+                    }
+                }
+            }
     }
 }
 
 // The block force: the rows i0 .. i0 + RB - 1 (those below ni) of qi
-// (ni, 3) against the sources qj (nj, 3) under gmj (nj,); every thread of
-// the block calls it. acc[k] ends holding the owned (row, component) k
+// (ni, 3) against the sources qj (nj, 3) under gmj (nj,), summed over the
+// tiles `tl` (B2Tiles or GroupTiles of nj sources); every thread of the
+// block calls it. acc[k] ends holding the owned (row, component) k
 // (B2Shape::OWN) of the thread.
-template <class S>
-__device__ __forceinline__ void b2_rows_force(
+template <class S, class Tiles>
+__device__ __forceinline__ void b2_rows_force_tiled(
         const float* __restrict__ qi, int ni, long long i0,
-        const float* __restrict__ qj, const float* __restrict__ gmj, int nj,
-        float eps2, typename S::Smem& sm, float (&acc)[S::OWN]) {
+        const float* __restrict__ qj, const float* __restrict__ gmj,
+        const Tiles& tl, float eps2, typename S::Smem& sm,
+        float (&acc)[S::OWN]) {
     const int tid = threadIdx.x, lane = tid % 32;
     const int lr = lane % S::LR;
     const int tt = (tid / 32) * S::LT + lane / S::LR;   // tile of the round
@@ -125,29 +210,29 @@ __device__ __forceinline__ void b2_rows_force(
             zi[r] = qi[i * 3 + 2];
         }
     }
+    float grp[S::OWN];   // a grouped sum's group partials
 #pragma unroll
-    for (int k = 0; k < S::OWN; ++k) acc[k] = 0.0f;
+    for (int k = 0; k < S::OWN; ++k) acc[k] = grp[k] = 0.0f;
 
-    const int rounds = (nj - 1) / S::SPAN + 1;
-    b2_stage<S>(sm.src[0], qj, gmj, 0, min(S::SPAN, nj));
+    const int nsub = tl.count();
+    const int rounds = (nsub - 1) / S::TPR + 1;
+    b2_stage_round<S>(sm.src[0], qj, gmj, tl, 0, nsub);
     cp_async_commit();
     for (int rd = 0; rd < rounds; ++rd) {
         cp_async_wait<0>();
         // this round's sources are in; every thread has folded the last
         // round (its half of the ring is free) and written its tile sums
         __syncthreads();
-        if (rd + 1 < rounds) {
-            const int j1 = (rd + 1) * S::SPAN;
-            b2_stage<S>(sm.src[(rd + 1) % 2], qj, gmj, j1,
-                        min(S::SPAN, nj - j1));
-        }
+        if (rd + 1 < rounds)
+            b2_stage_round<S>(sm.src[(rd + 1) % 2], qj, gmj, tl, rd + 1,
+                              nsub);
         cp_async_commit();
         if (rd > 0)
-            b2_add_tile_sums<S>(sm.part[(rd - 1) % 2], rd - 1, nj, acc);
+            b2_add_tile_sums<S>(sm.part[(rd - 1) % 2], rd - 1, tl, nsub, acc,
+                                grp);
 
-        const int j0 = (rd * S::TPR + tt) * B2_TJ;
-        if (j0 < nj) {
-            const int cols = min(B2_TJ, nj - j0);
+        if (rd * S::TPR + tt < nsub) {
+            const int cols = tl.len(rd * S::TPR + tt);
             const float4* src = sm.src[rd % 2] + tt * B2_STRIDE;
             float px[S::R], py[S::R], pz[S::R];
 #pragma unroll
@@ -174,7 +259,18 @@ __device__ __forceinline__ void b2_rows_force(
         }
     }
     __syncthreads();
-    b2_add_tile_sums<S>(sm.part[(rounds - 1) % 2], rounds - 1, nj, acc);
+    b2_add_tile_sums<S>(sm.part[(rounds - 1) % 2], rounds - 1, tl, nsub, acc,
+                        grp);
+}
+
+// B2's own sum (B2Tiles)
+template <class S>
+__device__ __forceinline__ void b2_rows_force(
+        const float* __restrict__ qi, int ni, long long i0,
+        const float* __restrict__ qj, const float* __restrict__ gmj, int nj,
+        float eps2, typename S::Smem& sm, float (&acc)[S::OWN]) {
+    b2_rows_force_tiled<S>(qi, ni, i0, qj, gmj, B2Tiles{nj}, eps2, sm,
+                           acc);
 }
 
 }  // namespace nbody

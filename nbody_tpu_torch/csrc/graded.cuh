@@ -74,6 +74,8 @@ struct GradedArgs {
     int p1, p2;   // P12, P123: the scenario rows of P1 and P2; -1 if absent
     int r0;       // this launch's rows: [r0, min(r0 + L.ni, n))
     Blocks L;     // the state's layout
+    int tile;     // float32 on the mesh: the ordered sum's source groups
+                  // (f32_force.cuh GroupTiles); unused elsewhere
 };
 
 // The arguments of a chunk on one device: all n rows in one block, P1 in
@@ -92,6 +94,7 @@ GradedArgs<T> graded_args(const T* m0, const T* mh, const T* fst,
     a.p2 = mode == MODE_P123 || (mode == MODE_P12 && B == 2) ? 1 : -1;
     a.r0 = 0;
     a.L = Blocks{n, static_cast<long long>(B) * n * 3};
+    a.tile = 0;
     return a;
 }
 

@@ -75,8 +75,11 @@ struct SimArgs {
     const T* mh;                            // (n,) device half-masses
     const typename SimReal<T>::type* fst;   // (steps + 1,) oscillation table
     int n;
-    long long slot;                         // n * 3
+    long long slot;                         // rows * 3: n one device, k * ni
+                                            // on the mesh
     T G, dt, kick, eps2;
+    int r0, end;   // the mesh: this launch's rows [r0, end)
+    int tile;      // the float32 mesh: the ordered sum's source groups
 };
 
 // x += d with running compensation c (ops/sim_step.comp_add): returns the
@@ -105,6 +108,17 @@ __device__ __forceinline__ void sim_form_gm(const SimArgs<T>& a, T* st,
                                          SimReal<T>::of(a.fst[t]), a.G);
 }
 
+// gm of every body for step t, by every thread of the grid (the mesh's
+// launches, which each update only their rank's rows)
+template <typename T>
+__device__ __forceinline__ void sim_form_gm_all(const SimArgs<T>& a, T* st,
+                                                int t) {
+    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                       + threadIdx.x;
+         i < a.n; i += static_cast<long long>(gridDim.x) * blockDim.x)
+        sim_form_gm(a, st, i, t);
+}
+
 // The leapfrog's first kick and drift of one component from its state
 // (q, v, acc, qc, vc), into the slots the next step's force reads
 template <typename T, bool comp>
@@ -131,7 +145,7 @@ sim_pre_kernel(SimArgs<T> a, T* __restrict__ st, int t) {
     const long long e = static_cast<long long>(blockIdx.x) * blockDim.x
                         + threadIdx.x;
     const long long S = a.slot;
-    if (e >= S) return;
+    if (e >= 3LL * a.n) return;
     if (e % 3 == 0) sim_form_gm(a, st, e / 3, t);
     if constexpr (integ == SIM_LEAPFROG) {
         const T zero{};
@@ -201,13 +215,19 @@ __device__ __forceinline__ void sim_update(const SimArgs<T>& a,
 // step(in, out, t, next) launches step t from buf[in] into buf[out]
 // (next: t < t1). The state ends in buf[(t1 - t0) & 1]. Returns the first
 // launch error, or 0.
+template <typename T, int integ, bool comp>
+int sim_pre(const SimArgs<T>& a, T* st, int t, cudaStream_t s) {
+    sim_pre_kernel<T, integ, comp>
+        <<<static_cast<unsigned>((3LL * a.n + 255) / 256), 256, 0, s>>>(
+            a, st, t);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int integ, bool comp, class Step>
 int sim_chunk(const SimArgs<T>& a, T* buf[2], int t0, int t1,
               cudaStream_t s, Step step) {
-    sim_pre_kernel<T, integ, comp>
-        <<<static_cast<unsigned>((a.slot + 255) / 256), 256, 0, s>>>(
-            a, buf[0], t0 + 1);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = static_cast<cudaError_t>(
+        sim_pre<T, integ, comp>(a, buf[0], t0 + 1, s));
     for (int t = t0 + 1; t <= t1 && err == cudaSuccess; ++t) {
         const int in = (t - t0 - 1) & 1;
         step(buf[in], buf[in ^ 1], t, static_cast<int>(t < t1));
@@ -220,6 +240,31 @@ int sim_chunk(const SimArgs<T>& a, T* buf[2], int t0, int t1,
 inline bool sim_chunk_args_ok(int n, int integrator, int t0, int t1) {
     return n > 0 && t0 >= 0 && t1 > t0
            && (integrator == SIM_EULER || integrator == SIM_LEAPFROG);
+}
+
+// A mesh rank's launch (the step kernels' sim_rows_*_step): n rows in k
+// blocks of ni = ceil(n / k), this rank's from r0, a block's first row,
+// at step t >= 1 (t >= 0 for the chunk's pre-launch); sets a's slot size
+// and rows, false if refused.
+template <typename T>
+bool sim_rows_args(SimArgs<T>& a, int ni, int k, int r0, int integrator,
+                   int t, bool step) {
+    if (!sim_chunk_args_ok(a.n, integrator, 0, 1) || k < 1
+        || ni != (a.n + k - 1) / k || r0 < 0 || r0 % ni != 0
+        || r0 / ni >= k || t < (step ? 1 : 0))
+        return false;
+    a.slot = 3LL * k * ni;
+    a.r0 = r0;
+    a.end = std::min(r0 + ni, a.n);
+    return true;
+}
+
+// The grid of a mesh rank's step launch: its rows in blocks of `rows`,
+// one block at least (a rank without rows still forms gm)
+template <typename T>
+dim3 sim_rows_grid(const SimArgs<T>& a, int rows) {
+    return dim3(static_cast<unsigned>(
+        std::max(1, (a.end - a.r0 + rows - 1) / rows)));
 }
 
 }  // namespace nbody

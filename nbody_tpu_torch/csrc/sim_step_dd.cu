@@ -20,6 +20,13 @@
 // updates it and forms what step t + 1 reads of it (the lane of the row's
 // first component its gm).
 //
+// The mesh (sim_rows_dd_step, the Blocked instantiation): a launch takes
+// a rank's rows [r0, end) and every row's position (sim_step.cuh has the
+// layout), and forms the next step's gm for all n bodies; the host
+// gathers the positions between two launches. Replaces, on simulate's
+// mesh path beyond binary64, the JAX package's tf3 chunk scan inside
+// shard_map (nbody_tpu/simulate.py _chunk_scan_mesh).
+//
 // Bound: kernel B4's (the fp64 pipe, 333 instructions a pair) plus the
 // launch; the update is a few dozen fp64 ops a body.
 
@@ -36,15 +43,18 @@ using Geo = nbody::DdNarrow;
 using Args = nbody::SimArgs<dd>;
 
 // Step t from buffer in into buffer out; `next`: form what step t + 1
-// reads (every step but a chunk's last)
-template <int integ>
+// reads (every step but a chunk's last); Blocked: a mesh rank's rows
+template <int integ, bool Blocked>
 __global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
 sim_step_dd_kernel(Args a, const dd* __restrict__ in, dd* __restrict__ out,
                    int t, int next) {
     __shared__ Geo::Smem sm;
 
+    if (Blocked && next) nbody::sim_form_gm_all(a, out, t + 1);
     const long long S = a.slot;
-    const int i0 = blockIdx.x * Geo::R, live = min(Geo::R, a.n - i0);
+    const int i0 = (Blocked ? a.r0 : 0) + blockIdx.x * Geo::R;
+    const int live = min(Geo::R, (Blocked ? a.end : a.n) - i0);
+    if (Blocked && live <= 0) return;   // a rank without rows
     const dd* pos = in + nbody::sim_pos_slot<integ>() * S;
     nbody::dd_rows_qi<Geo>(pos + 3LL * i0, live, sm);
     if (threadIdx.x < Geo::NC) {
@@ -62,7 +72,8 @@ sim_step_dd_kernel(Args a, const dd* __restrict__ in, dd* __restrict__ out,
     const dd acc = nbody::dd_rows_fold<Geo>(a.n, folds, sm);
     if (!folds) return;
     nbody::sim_update<dd, integ, false>(a, s, acc, out, e, next);
-    if (next && x % 3 == 0) nbody::sim_form_gm(a, out, i0 + x / 3, t + 1);
+    if (!Blocked && next && x % 3 == 0)
+        nbody::sim_form_gm(a, out, i0 + x / 3, t + 1);
 }
 
 template <int integ>
@@ -70,9 +81,22 @@ int chunk(const Args& a, dd* buf[2], int t0, int t1, cudaStream_t s) {
     const dim3 grid((a.n + Geo::R - 1) / Geo::R);
     return nbody::sim_chunk<dd, integ, false>(
         a, buf, t0, t1, s, [&](dd* in, dd* out, int t, int next) {
-            sim_step_dd_kernel<integ>
+            sim_step_dd_kernel<integ, false>
                 <<<grid, Geo::THREADS, 0, s>>>(a, in, out, t, next);
         });
+}
+
+// A mesh rank's launch: step t from in into out, or with out null the
+// chunk's pre-launch on in for step t
+template <int integ>
+int rows_step(const Args& a, dd* in, dd* out, int t, int next,
+              cudaStream_t s) {
+    if (out == nullptr)
+        return nbody::sim_pre<dd, integ, false>(a, in, t, s);
+    sim_step_dd_kernel<integ, true>
+        <<<nbody::sim_rows_grid(a, Geo::R), Geo::THREADS, 0, s>>>(
+            a, in, out, t, next);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -111,14 +135,44 @@ extern "C" int sim_chunk_dd_launch(double* st0, double* st1,
                : chunk<nbody::SIM_LEAPFROG>(a, buf, t0, t1, s);
 }
 
+// One launch of a mesh rank (sim_step.cuh, the row-range form), as
+// sim_rows_f64_step (sim_step_f64.cu) has it, every value a pair of
+// doubles; the other arguments are sim_chunk_dd_launch's.
+extern "C" int sim_rows_dd_step(double* in, double* out, const double* m0,
+                                const double* mh, const double* fst, int n,
+                                int ni, int k, int r0, int integrator,
+                                double G, double dt, double kick,
+                                double eps2_hi, double eps2_lo, int t,
+                                int next, void* stream) {
+    Args a{reinterpret_cast<const dd*>(m0),
+           reinterpret_cast<const dd*>(mh),
+           fst,
+           n,
+           3LL * n,
+           dd{G, 0.0},
+           dd{dt, 0.0},
+           dd{kick, 0.0},
+           dd{eps2_hi, eps2_lo}};
+    if (!nbody::sim_rows_args(a, ni, k, r0, integrator, t, out != nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    dd* i = reinterpret_cast<dd*>(in);
+    dd* o = reinterpret_cast<dd*>(out);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return integrator == nbody::SIM_EULER
+               ? rows_step<nbody::SIM_EULER>(a, i, o, t, next, s)
+               : rows_step<nbody::SIM_LEAPFROG>(a, i, o, t, next, s);
+}
+
 // What the card says of the step kernel of this integrator (forces.cuh
 // kernel_info).
 extern "C" int sim_step_dd_info(int integrator, int* out) {
     if (!nbody::sim_chunk_args_ok(1, integrator, 0, 1))
         return static_cast<int>(cudaErrorInvalidValue);
     return integrator == nbody::SIM_EULER
-               ? nbody::kernel_info(sim_step_dd_kernel<nbody::SIM_EULER>,
-                                    Geo::THREADS, Geo::R, out)
-               : nbody::kernel_info(sim_step_dd_kernel<nbody::SIM_LEAPFROG>,
-                                    Geo::THREADS, Geo::R, out);
+               ? nbody::kernel_info(
+                     sim_step_dd_kernel<nbody::SIM_EULER, false>,
+                     Geo::THREADS, Geo::R, out)
+               : nbody::kernel_info(
+                     sim_step_dd_kernel<nbody::SIM_LEAPFROG, false>,
+                     Geo::THREADS, Geo::R, out);
 }

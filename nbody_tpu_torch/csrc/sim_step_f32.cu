@@ -18,6 +18,19 @@
 // component) reads the component's state, updates it and forms what step
 // t + 1 reads of it (the owner of the row's first component its gm).
 //
+// The mesh (sim_rows_f32_step, the Blocked instantiation): a launch takes
+// a rank's rows [r0, end), sums their force over every row's position in
+// the mesh's ordered sum at tile T (f32_force.cuh GroupTiles, bitwise
+// parallel/sharded.ring_accel_ordered's; at T = 128, or a T of all n,
+// that sum is B2's own and the launch takes B2Tiles: the grouped form's
+// staging a tile at a time and its group partials cost time at n = 65536,
+// PERF.md) and forms the next step's gm for all n bodies; the host
+// gathers the positions between two launches (sim_step.cuh has the
+// layout). Replaces, on
+// simulate's float32 mesh path, the JAX package's chunk scan inside
+// shard_map (nbody_tpu/simulate.py _chunk_scan_mesh) around its ordered
+// ring.
+//
 // Bound: kernel B2's (fp32 issue, 18 FP32 instructions and one rsqrt a
 // pair; at n = 1024 the launch and one tile's chain of 128 adds) plus the
 // launch; the update is a few ops a body.
@@ -32,19 +45,32 @@ namespace {
 using Args = nbody::SimArgs<float>;
 
 // Step t from buffer in into buffer out in B2's shape Sh; `next`: form
-// what step t + 1 reads (every step but a chunk's last)
-template <class Sh, int integ, bool comp>
+// what step t + 1 reads (every step but a chunk's last); Blocked: a mesh
+// rank's rows, in the ordered sum at a.tile over Tiles (GroupTiles, or
+// B2Tiles where that sum is B2's own: at tile 128 or a tile of all n)
+template <class Sh, int integ, bool comp, bool Blocked,
+          class Tiles = nbody::B2Tiles>
 __global__ void __launch_bounds__(Sh::THREADS)
 sim_step_f32_kernel(Args a, const float* __restrict__ in,
                     float* __restrict__ out, int t, int next) {
     __shared__ typename Sh::Smem sm;
 
+    if (Blocked && next) nbody::sim_form_gm_all(a, out, t + 1);
     const long long S = a.slot;
+    // the rows [r0, end), i0 the block's first among them
+    const int r0 = Blocked ? a.r0 : 0, end = Blocked ? a.end : a.n;
+    if (Blocked && end <= r0) return;   // a rank without rows
     const long long i0 = static_cast<long long>(blockIdx.x) * Sh::RB;
     const float* pos = in + nbody::sim_pos_slot<integ>() * S;
+    const float* gm = in + nbody::SLOT_GM * S;
     float acc[Sh::OWN];
-    nbody::b2_rows_force<Sh>(pos, a.n, i0, pos, in + nbody::SLOT_GM * S,
-                             a.n, a.eps2, sm, acc);
+    if constexpr (Blocked)
+        nbody::b2_rows_force_tiled<Sh>(
+            pos + 3LL * r0, end - r0, i0, pos, gm,
+            Tiles::of(a.n, a.tile), a.eps2, sm, acc);
+    else
+        nbody::b2_rows_force<Sh>(pos, a.n, i0, pos, gm, a.n, a.eps2, sm,
+                                 acc);
     // the owned (row, component)s (f32_force.cuh B2Shape::OWN): their
     // state read after the force (read before it and held across the
     // source loop, it made the large shape 17% slower at n = 65536), then
@@ -52,12 +78,13 @@ sim_step_f32_kernel(Args a, const float* __restrict__ in,
 #pragma unroll
     for (int k = 0; k < Sh::OWN; ++k) {
         const int o = threadIdx.x + k * Sh::THREADS, c = o / Sh::RB;
-        const long long i = i0 + o % Sh::RB, e = 3 * i + c;
-        if (o < 3 * Sh::RB && i < a.n) {
+        const long long i = r0 + i0 + o % Sh::RB, e = 3 * i + c;
+        if (o < 3 * Sh::RB && i < end) {
             nbody::sim_update<float, integ, comp>(
                 a, nbody::sim_load<float, integ, comp>(a, in, e), acc[k],
                 out, e, next);
-            if (next && c == 0) nbody::sim_form_gm(a, out, i, t + 1);
+            if (!Blocked && next && c == 0)
+                nbody::sim_form_gm(a, out, i, t + 1);
         }
     }
 }
@@ -67,9 +94,39 @@ int chunk(const Args& a, float* buf[2], int t0, int t1, cudaStream_t s) {
     const dim3 grid(static_cast<unsigned>((a.n + (Sh::RB - 1LL)) / Sh::RB));
     return nbody::sim_chunk<float, integ, comp>(
         a, buf, t0, t1, s, [&](float* in, float* out, int t, int next) {
-            sim_step_f32_kernel<Sh, integ, comp>
+            sim_step_f32_kernel<Sh, integ, comp, false>
                 <<<grid, Sh::THREADS, 0, s>>>(a, in, out, t, next);
         });
+}
+
+// A mesh rank's launch: step t from in into out, or with out null the
+// chunk's pre-launch on in for step t
+template <class Sh, int integ, bool comp>
+int rows_step(const Args& a, float* in, float* out, int t, int next,
+              cudaStream_t s) {
+    if (out == nullptr)
+        return nbody::sim_pre<float, integ, comp>(a, in, t, s);
+    const dim3 grid = nbody::sim_rows_grid(a, Sh::RB);
+    if (a.tile == nbody::B2_TJ || a.tile == a.n)   // B2's own sum
+        sim_step_f32_kernel<Sh, integ, comp, true, nbody::B2Tiles>
+            <<<grid, Sh::THREADS, 0, s>>>(a, in, out, t, next);
+    else
+        sim_step_f32_kernel<Sh, integ, comp, true, nbody::GroupTiles>
+            <<<grid, Sh::THREADS, 0, s>>>(a, in, out, t, next);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <class Sh>
+int rows_by_variant(int integ, bool comp, const Args& a, float* in,
+                    float* out, int t, int next, cudaStream_t s) {
+    using nbody::SIM_EULER;
+    using nbody::SIM_LEAPFROG;
+    if (integ == SIM_EULER)
+        return comp ? rows_step<Sh, SIM_EULER, true>(a, in, out, t, next, s)
+                    : rows_step<Sh, SIM_EULER, false>(a, in, out, t, next,
+                                                      s);
+    return comp ? rows_step<Sh, SIM_LEAPFROG, true>(a, in, out, t, next, s)
+                : rows_step<Sh, SIM_LEAPFROG, false>(a, in, out, t, next, s);
 }
 
 template <class Sh>
@@ -92,10 +149,10 @@ int info(int integ, bool comp, int* out) {
         return nbody::kernel_info(kernel, Sh::THREADS, Sh::RB, out);
     };
     if (integ == SIM_EULER)
-        return comp ? of(sim_step_f32_kernel<Sh, SIM_EULER, true>)
-                    : of(sim_step_f32_kernel<Sh, SIM_EULER, false>);
-    return comp ? of(sim_step_f32_kernel<Sh, SIM_LEAPFROG, true>)
-                : of(sim_step_f32_kernel<Sh, SIM_LEAPFROG, false>);
+        return comp ? of(sim_step_f32_kernel<Sh, SIM_EULER, true, false>)
+                    : of(sim_step_f32_kernel<Sh, SIM_EULER, false, false>);
+    return comp ? of(sim_step_f32_kernel<Sh, SIM_LEAPFROG, true, false>)
+                : of(sim_step_f32_kernel<Sh, SIM_LEAPFROG, false, false>);
 }
 
 bool args_ok(int n, int integrator, int compensated) {
@@ -131,6 +188,32 @@ extern "C" int sim_chunk_f32_launch(float* st0, float* st1, const float* m0,
                                             s)
                : by_variant<nbody::B2Small>(integrator, comp, a, buf, t0, t1,
                                             s);
+}
+
+// One launch of a mesh rank (sim_step.cuh, the row-range form), as
+// sim_rows_f64_step (sim_step_f64.cu) has it, in float32, the force's
+// ordered sum at tile T >= 1 (a tile above n is one group of n), in B2's
+// shape for the rank's rows; the other arguments are
+// sim_chunk_f32_launch's.
+extern "C" int sim_rows_f32_step(float* in, float* out, const float* m0,
+                                 const float* mh, const float* fst, int n,
+                                 int ni, int k, int r0, int integrator,
+                                 int compensated, int tile, float G,
+                                 float dt, float kick, float eps2, int t,
+                                 int next, void* stream) {
+    Args a{m0, mh, fst, n, 3LL * n, G, dt, kick, eps2};
+    if (!args_ok(n, integrator, compensated) || tile < 1
+        || !nbody::sim_rows_args(a, ni, k, r0, integrator, t,
+                                 out != nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    a.tile = tile < n ? tile : n;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool comp = compensated != 0;
+    return nbody::b2_large(1, a.end - a.r0)
+               ? rows_by_variant<nbody::B2Large>(integrator, comp, a, in,
+                                                 out, t, next, s)
+               : rows_by_variant<nbody::B2Small>(integrator, comp, a, in,
+                                                 out, t, next, s);
 }
 
 // What the card says of the step kernel of this variant at n bodies, in

@@ -16,6 +16,13 @@
 // B1's geometry; its fold lane (row, component) reads its state before the
 // fold, then updates its component and forms what step t + 1 reads of it.
 //
+// The mesh (sim_rows_f64_step, the Blocked instantiation): a launch takes
+// a rank's rows [r0, end) and every row's position (sim_step.cuh has the
+// layout), and forms the next step's gm for all n bodies; the host
+// gathers the positions between two launches. Replaces, on simulate's
+// binary64 mesh path, the JAX package's chunk scan inside shard_map
+// (nbody_tpu/simulate.py _chunk_scan_mesh).
+//
 // Bound: kernel B1's (the fp64 pipe, 40 instructions a pair, and the
 // fold's latency) plus the launch; the update is a few ops a body.
 
@@ -30,15 +37,18 @@ using Geo = nbody::F64Block;
 using Args = nbody::SimArgs<double>;
 
 // Step t from buffer in into buffer out; `next`: form what step t + 1
-// reads (every step but a chunk's last)
-template <int dist3, int integ, bool comp>
+// reads (every step but a chunk's last); Blocked: a mesh rank's rows
+template <int dist3, int integ, bool comp, bool Blocked>
 __global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
 sim_step_f64_kernel(Args a, const double* __restrict__ in,
                     double* __restrict__ out, int t, int next) {
     __shared__ typename Geo::Smem sm;
 
+    if (Blocked && next) nbody::sim_form_gm_all(a, out, t + 1);
     const long long S = a.slot;
-    const int i0 = blockIdx.x * Geo::R, live = min(Geo::R, a.n - i0);
+    const int i0 = (Blocked ? a.r0 : 0) + blockIdx.x * Geo::R;
+    const int live = min(Geo::R, (Blocked ? a.end : a.n) - i0);
+    if (Blocked && live <= 0) return;   // a rank without rows
     const double* pos = in + nbody::sim_pos_slot<integ>() * S;
     nbody::f64_rows_qi<Geo>(pos + 3LL * i0, live, sm);
     if (threadIdx.x < Geo::NC) {
@@ -54,7 +64,8 @@ sim_step_f64_kernel(Args a, const double* __restrict__ in,
     const double acc = nbody::f64_rows_fold<Geo>(a.n, folds, sm);
     if (!folds) return;
     nbody::sim_update<double, integ, comp>(a, s, acc, out, e, next);
-    if (next && x % 3 == 0) nbody::sim_form_gm(a, out, i0 + x / 3, t + 1);
+    if (!Blocked && next && x % 3 == 0)
+        nbody::sim_form_gm(a, out, i0 + x / 3, t + 1);
 }
 
 template <int dist3, int integ, bool comp>
@@ -62,9 +73,22 @@ int chunk(const Args& a, double* buf[2], int t0, int t1, cudaStream_t s) {
     const dim3 grid((a.n + Geo::R - 1) / Geo::R);
     return nbody::sim_chunk<double, integ, comp>(
         a, buf, t0, t1, s, [&](double* in, double* out, int t, int next) {
-            sim_step_f64_kernel<dist3, integ, comp>
+            sim_step_f64_kernel<dist3, integ, comp, false>
                 <<<grid, Geo::THREADS, 0, s>>>(a, in, out, t, next);
         });
+}
+
+// A mesh rank's launch: step t from in into out, or with out null the
+// chunk's pre-launch on in for step t
+template <int dist3, int integ, bool comp>
+int rows_step(const Args& a, double* in, double* out, int t, int next,
+              cudaStream_t s) {
+    if (out == nullptr)
+        return nbody::sim_pre<double, integ, comp>(a, in, t, s);
+    sim_step_f64_kernel<dist3, integ, comp, true>
+        <<<nbody::sim_rows_grid(a, Geo::R), Geo::THREADS, 0, s>>>(
+            a, in, out, t, next);
+    return static_cast<int>(cudaGetLastError());
 }
 
 template <int dist3>
@@ -77,6 +101,21 @@ int by_variant(int integ, bool comp, const Args& a, double* buf[2], int t0,
                     : chunk<dist3, SIM_EULER, false>(a, buf, t0, t1, s);
     return comp ? chunk<dist3, SIM_LEAPFROG, true>(a, buf, t0, t1, s)
                 : chunk<dist3, SIM_LEAPFROG, false>(a, buf, t0, t1, s);
+}
+
+template <int dist3>
+int rows_by_variant(int integ, bool comp, const Args& a, double* in,
+                    double* out, int t, int next, cudaStream_t s) {
+    using nbody::SIM_EULER;
+    using nbody::SIM_LEAPFROG;
+    if (integ == SIM_EULER)
+        return comp ? rows_step<dist3, SIM_EULER, true>(a, in, out, t, next,
+                                                        s)
+                    : rows_step<dist3, SIM_EULER, false>(a, in, out, t, next,
+                                                         s);
+    return comp ? rows_step<dist3, SIM_LEAPFROG, true>(a, in, out, t, next, s)
+                : rows_step<dist3, SIM_LEAPFROG, false>(a, in, out, t, next,
+                                                        s);
 }
 
 }  // namespace
@@ -109,6 +148,36 @@ extern "C" int sim_chunk_f64_launch(double* st0, double* st1,
                                                 t1, s)
                : by_variant<nbody::DIST3_SQRT3>(integrator, comp, a, buf, t0,
                                                 t1, s);
+}
+
+// One launch of a mesh rank (sim_step.cuh, the row-range form): step t of
+// the rows [r0, r0 + ni) of n bodies in k blocks of ni = ceil(n / k) rows,
+// from buffer in into buffer out, each SIM_SLOTS * k * ni * 3 doubles (slot
+// s holds row i at s * k * ni * 3 + 3 * i), reading every row's position
+// (q, or p for the leapfrog) and gm from in; `next`: form what step t + 1
+// reads, its gm for all n bodies. With out null, the chunk's pre-launch:
+// what step t reads, formed in buffer in from its whole state. The other
+// arguments are sim_chunk_f64_launch's. Returns the launch error, or
+// cudaErrorInvalidValue without launching.
+extern "C" int sim_rows_f64_step(double* in, double* out, const double* m0,
+                                 const double* mh, const double* fst, int n,
+                                 int ni, int k, int r0, int integrator,
+                                 int compensated, int dist3, double G,
+                                 double dt, double kick, double eps2, int t,
+                                 int next, void* stream) {
+    Args a{m0, mh, fst, n, 3LL * n, G, dt, kick, eps2};
+    if ((compensated != 0 && compensated != 1)
+        || (dist3 != nbody::DIST3_DSQRT && dist3 != nbody::DIST3_SQRT3)
+        || !nbody::sim_rows_args(a, ni, k, r0, integrator, t,
+                                 out != nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool comp = compensated != 0;
+    return dist3 == nbody::DIST3_DSQRT
+               ? rows_by_variant<nbody::DIST3_DSQRT>(integrator, comp, a, in,
+                                                     out, t, next, s)
+               : rows_by_variant<nbody::DIST3_SQRT3>(integrator, comp, a, in,
+                                                     out, t, next, s);
 }
 
 // The slots of a state buffer of every step kernel (sim_step.cuh), for

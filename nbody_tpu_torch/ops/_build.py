@@ -129,6 +129,19 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [*[ctypes.c_void_p] * 5, *[ctypes.c_int] * ints,
                        *[real] * reals, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p]
+    # sim_rows_*_step, a mesh rank's launch: in, out, m0, mh, fst; n, ni,
+    # k, r0, integrator, then compensated (f64, f32), dist3 (f64) or the
+    # tile (f32); G, dt, kick and eps2 as sim_chunk_*_launch has them; t,
+    # next, cudaStream_t
+    for name, ints, real, reals in (
+            ("sim_rows_f64_step", 7, ctypes.c_double, 4),
+            ("sim_rows_f32_step", 7, ctypes.c_float, 4),
+            ("sim_rows_dd_step", 5, ctypes.c_double, 5)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [*[ctypes.c_void_p] * 5, *[ctypes.c_int] * ints,
+                       *[real] * reals, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
     lib.div_probe_launch.restype = ctypes.c_int
     lib.div_probe_launch.argtypes = [
         *[ctypes.c_void_p] * 4,                  # n, d, want, got
@@ -195,16 +208,19 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p,                                 # cudaStream_t
         ]
     # graded_rows_*_step: the chunk's pointers from m0 to v_snap; (mode, B,
-    # n, D, planet, p1, p2, ni, k), dist3 in binary64, the reals as above;
-    # then the launch's qv, qv_out, r0, t, check and stream
-    for name, ints, reals in (("graded_rows_f64_step", 1, 4),
-                              ("graded_rows_dd_step", 0, 8)):
+    # n, D, planet, p1, p2, ni, k), dist3 in binary64 or the tile in
+    # float32, the reals as above; then the launch's qv, qv_out, r0, t,
+    # check and stream
+    for name, ints, real, reals in (
+            ("graded_rows_f64_step", 1, ctypes.c_double, 4),
+            ("graded_rows_f32_step", 1, ctypes.c_float, 4),
+            ("graded_rows_dd_step", 0, ctypes.c_double, 8)):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [
             *[ctypes.c_void_p] * 12,
             *[ctypes.c_int] * (9 + ints),
-            *[ctypes.c_double] * reals,
+            *[real] * reals,
             ctypes.c_void_p, ctypes.c_void_p,                # qv, qv_out
             ctypes.c_int, ctypes.c_int, ctypes.c_int,        # r0, t, check
             ctypes.c_void_p,                                 # cudaStream_t

@@ -149,6 +149,25 @@ def accel_f32(qi: torch.Tensor, qj: torch.Tensor, gmj: torch.Tensor, *,
 accel_f32.launches = 0
 
 
+def accel_f32_ordered(qi: torch.Tensor, qj: torch.Tensor,
+                      gmj: torch.Tensor, *, eps: float, tile: int,
+                      force=accel_f32) -> torch.Tensor:
+    """The mesh's ordered float32 sum at tile T (parallel/sharded.py
+    ring_accel_ordered's, in one process): `force(qi, qj_g, gm_g)` (kernel
+    B2's cross form, or its plain version) of each group of `tile`
+    sources from 0 (the last one ragged), added from 0 in ascending group
+    order. At tile 128, or a tile of all nj sources, that is B2's own sum:
+    one call."""
+    nj = qj.shape[-2]
+    if tile == TILE_J or tile >= nj:
+        return force(qi, qj, gmj, eps=eps)
+    acc = torch.zeros_like(qi)
+    for j in range(0, nj, tile):
+        acc = acc + force(qi, qj[..., j:j + tile, :].contiguous(),
+                          gmj[..., j:j + tile].contiguous(), eps=eps)
+    return acc
+
+
 def accel_f32_self(q: torch.Tensor, gm: torch.Tensor, *,
                    eps: float) -> torch.Tensor:
     """All-pairs accelerations of q (B, n, 3) under gm (B, n), or of one

@@ -21,8 +21,9 @@ on a card, their plain versions on the CPU). Both compute the same bits:
 every op of the kernels is the plain loop's op in the same order
 (csrc/graded.cuh).
 
-The mesh (parallel/solver_sharded.py) runs its binary64 and double-double
-steps through `graded_rows_chunk(mode, c, s0, s1, blocks, gather)`: a rank
+The mesh (parallel/solver_sharded.py) runs its steps in every
+representation through `graded_rows_chunk(mode, c, s0, s1, blocks,
+gather)`: a rank
 computes the force of its own rows [r0, r0 + ni) against every body,
 updates those rows, and one `gather` (an in-place all_gather over 'body')
 puts the ranks' rows together; every rank then checks the whole state. The
@@ -33,14 +34,12 @@ one C call that launches the graded step kernel on the rank's rows (the
 one-device kernel, of which one device is the case k = 1) and one call of
 `gather`; a chunk ends with one check launch. On the CPU the plain
 version makes the same step in the same order: the rows' force through the
-cross form of kernel B1 or B4, their update, the gather, and the checks of
-`_p12_chunk_ref` or `_p3_chunk_ref`. Where the scenarios are split across
-ranks, the P1+P2 `roles` name the rows a rank holds.
-
-The plain P1+P2 and Problem-3 chunks also serve the float32 mesh, which
-hands them its own `step` (the ordered ring over a body-sharded state) and
-its own `take` (the planet's, asteroid's and devices' rows of a sharded
-state). There is one copy of the graded checks.
+cross form of kernel B1 or B4 (float32: B2's cross form in the mesh's
+ordered sum at `tile`, ops/accel_f32.accel_f32_ordered, bitwise the
+ordered ring's and at tile 128 B2's own), their update, the gather, and
+the checks of `_p12_chunk_ref` or `_p3_chunk_ref`. Where the scenarios are
+split across ranks, the P1+P2 `roles` name the rows a rank holds. There is
+one copy of the graded checks.
 
 The JAX package runs the same chunks as compiled scans
 (nbody_tpu/models/direct_sum.py `_p12_chunk`, `_p123_chunk`, `_p3_chunks`).
@@ -55,7 +54,7 @@ import torch
 
 from . import ddfloat as ddf
 from .accel_dd import accel_dd, eps2_dd
-from .accel_f32 import eps2_f32
+from .accel_f32 import TILE_J, accel_f32, accel_f32_ordered, eps2_f32
 from .accel_f64 import accel_f64
 from .forces import DIST3_CODES, sq_dist
 from .integrate import scalar, symplectic_euler_step, \
@@ -471,16 +470,21 @@ def from_blocks(qv: torch.Tensor, n: int) -> tuple:
 
 
 def _rows_ref(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
-              gather, roles) -> None:
+              gather, roles, tile: int) -> None:
     """The plain row-range chunk: each step, the force of the rows of
-    `blocks.mine` through the cross form of kernel B1 (or B4), their
-    update, `gather` of the blocks, then the plain chunk's checks on the
-    whole state."""
+    `blocks.mine` through the cross form of kernel B1, B4 or (in the
+    ordered sum at `tile`) B2, their update, `gather` of the blocks, then
+    the plain chunk's checks on the whole state."""
     n, shape = blocks.n, c.q.shape
     q, v = from_blocks(c.q, n)
     ar = arith(q)
-    cross = functools.partial(accel_dd, eps=c.eps) if is_dd(q) else \
-        functools.partial(accel_f64, eps=c.eps, dist3_mode=c.dist3)
+    if is_dd(q):
+        cross = functools.partial(accel_dd, eps=c.eps)
+    elif q.dtype == torch.float32:
+        cross = functools.partial(accel_f32_ordered, eps=c.eps, tile=tile,
+                                  force=accel_f32)
+    else:
+        cross = functools.partial(accel_f64, eps=c.eps, dist3_mode=c.dist3)
 
     def step(cc, q, v, s):
         out = q.new_zeros(shape)
@@ -507,7 +511,7 @@ def _rows_ref(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
 
 
 def _launch_rows(fn, mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
-                 gather, roles) -> None:
+                 gather, roles, tile: int) -> None:
     """A C call a step on each block of `blocks.mine` (one launch of the
     graded step kernel on its rows), `gather` after each step, and one
     check launch; no host synchronisation."""
@@ -520,6 +524,10 @@ def _launch_rows(fn, mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
     if is_dd(c.q):
         launch = lib.graded_rows_dd_step
         tail = (c.G, 0.0, c.dt, 0.0, *eps2_dd(c.eps), *c.r2)
+    elif c.q.dtype == torch.float32:
+        launch = lib.graded_rows_f32_step
+        tail = (tile, scalar(c.G, c.q.dtype), scalar(c.dt, c.q.dtype),
+                eps2_f32(c.eps), c.r2)
     else:
         launch = lib.graded_rows_f64_step
         tail = (DIST3_CODES[c.dist3], c.G, c.dt, c.eps * c.eps, c.r2)
@@ -558,11 +566,14 @@ def _launch_rows(fn, mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
 
 
 def graded_rows_chunk(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
-                      gather=None, roles: tuple | None = None) -> None:
+                      gather=None, roles: tuple | None = None,
+                      tile: int = TILE_J) -> None:
     """Advance a mesh rank's carry c from step s0 to s1 in driver `mode`
     (P12 or P3; the mesh has no fused driver). c.q is the state in
-    `blocks` (`to_blocks`), float64 or double-double, and c.v None; every
-    other field is as `graded_chunk` has it.
+    `blocks` (`to_blocks`), float64, float32 or double-double, and c.v
+    None; every other field is as `graded_chunk` has it. A float32 force
+    is the mesh's ordered sum at `tile` (bitwise `graded_chunk`'s at tile
+    128).
 
     Each step computes the rows of the blocks `blocks.mine` and then calls
     gather(qv), which must fill the other blocks of qv in place (an
@@ -570,16 +581,20 @@ def graded_rows_chunk(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
     block. roles = (P1's row, P2's row) in P12, either None where the
     carry lacks it (default: P1 is row 0, P2 row 1 if there are two rows).
     CUDA tensors run the graded step kernel of their representation on the
-    rows and add its launches to `graded_step_f64.launches` or
-    `graded_step_dd.launches`; CPU tensors run the plain version."""
+    rows and add its launches to `graded_step_f64.launches`,
+    `graded_step_f32.launches` or `graded_step_dd.launches`; CPU tensors
+    run the plain version."""
     B = c.q.shape[2] if c.q.dim() > 2 else 0
     if mode == P12 and roles is None:
         roles = (0, 1 if B == 2 else None)
     if mode not in (P12, P3):
         raise ValueError(f"graded_rows_chunk takes P12 or P3, got {mode!r}")
-    if c.q.dtype != torch.float64:
-        raise TypeError(f"graded_rows_chunk takes a float64 or double-double "
-                        f"state, got {c.q.dtype}")
+    if c.q.dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"graded_rows_chunk takes a float64, float32 or "
+                        f"double-double state, got {c.q.dtype}")
+    if not isinstance(tile, int) or tile < 1:
+        raise ValueError(f"the float32 mesh's tile is a positive source "
+                         f"count, got {tile!r}")
     mine = blocks.mine
     if blocks.k < 1 or not mine or len(set(mine)) != len(mine) \
             or not all(0 <= r < blocks.k for r in mine) \
@@ -597,11 +612,11 @@ def graded_rows_chunk(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
         raise ValueError(f"P12 roles name the carry's {B} rows, got {roles}")
     _check(mode, c, s0, s1, blocks)
     if c.q.device.type == "cpu":
-        _rows_ref(mode, c, s0, s1, blocks, gather, roles)
-    elif is_dd(c.q):
-        _launch_rows(graded_step_dd, mode, c, s0, s1, blocks, gather, roles)
-    else:
-        _launch_rows(graded_step_f64, mode, c, s0, s1, blocks, gather, roles)
+        _rows_ref(mode, c, s0, s1, blocks, gather, roles, tile)
+        return
+    fn = graded_step_dd if is_dd(c.q) else \
+        graded_step_f32 if c.q.dtype == torch.float32 else graded_step_f64
+    _launch_rows(fn, mode, c, s0, s1, blocks, gather, roles, tile)
 
 
 def graded_chunk(mode: int, c: Carry, s0: int, s1: int) -> None:

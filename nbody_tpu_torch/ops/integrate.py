@@ -13,9 +13,10 @@ double-double.
 
 `force`, where a step takes it, replaces the all-pairs kernel call: a
 function force(q, gm) -> a of the state as the step has it and gm =
-G * m_eff formed here. The mesh passes its own (parallel/): rows through
-the kernel's cross form and a gather, or the ordered ring over a sharded
-state; every other op of the step stays the same.
+G * m_eff formed here. The mesh's plain versions and its leapfrog seed
+pass their own (ops/sim_step.rows_force, ops/graded_step): a rank's rows
+through the kernel's cross form (float32: in the mesh's ordered sum at a
+tile) and a gather; every other op of the step stays the same.
 """
 
 from __future__ import annotations

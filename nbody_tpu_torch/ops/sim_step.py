@@ -22,6 +22,20 @@ On a CUDA carry each launches its kernel or raises; a CPU carry goes to
 its plain version (`sim_chunk_f64_ref`, `sim_chunk_f32_ref`,
 `sim_chunk_dd_ref`): the eager loop with the force kernel's plain twin as
 its force.
+
+The mesh (`simulate(mesh=)`) runs the row-range form of the same kernels
+(`sim_rows_chunk_f64`, `sim_rows_chunk_f32`, `sim_rows_chunk_dd`): every
+rank holds the whole carry, and a step is one launch on the rank's rows
+(those of its block of ops/graded_step `Blocks`) and one in-place
+all_gather (`gather`) of the positions the next step's force reads
+(csrc/sim_step.cuh has the layout); a chunk starts with one launch that
+forms the first step's inputs and ends with one all_gather of the carry.
+In float32 the force is the mesh's ordered sum at tile T
+(ops/accel_f32.accel_f32_ordered, bitwise the ordered ring's, B2's at
+T = 128). Their plain versions (`sim_rows_chunk_*_ref`) are the eager
+loops whose force is the cross form's plain twin on the rank's rows and
+an all_gather of those rows' forces. The bits are the one-device eager
+loop's on every mesh shape (in float32 at one tile).
 """
 
 from __future__ import annotations
@@ -33,9 +47,10 @@ import torch
 
 from . import ddfloat as ddf
 from .accel_dd import accel_dd_ref, eps2_dd
-from .accel_f32 import accel_f32_ref, eps2_f32
+from .accel_f32 import TILE_J, accel_f32_ordered, accel_f32_ref, eps2_f32
 from .accel_f64 import accel_f64_ref
 from .forces import DIST3_CODES
+from .graded_step import Blocks
 from .integrate import accel, kdk_leapfrog_step, kdk_leapfrog_step_dd, \
     scalar, symplectic_euler_step, symplectic_euler_step_dd
 
@@ -218,7 +233,11 @@ def _launch(wrapper, c: SimCarry, s0: int, s1: int, launch) -> None:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
                            f"error {rc}")
     wrapper.launches += s1 - s0 + 1
-    out = st[(s1 - s0) % 2]
+    _read(c, st[(s1 - s0) % 2])
+
+
+def _read(c: SimCarry, out: torch.Tensor) -> None:
+    """The carry from the slots of a state buffer."""
     c.q, c.v = out[0], out[1]
     if c.a is not None:
         c.a = out[2]
@@ -361,3 +380,285 @@ def sim_chunk_dd(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
 
 
 sim_chunk_dd.launches = 0
+
+
+def _check_rows(name: str, blocks: Blocks, gather, n: int) -> None:
+    mine = blocks.mine
+    if blocks.n != n or blocks.k < 1 or not mine \
+            or len(set(mine)) != len(mine) \
+            or not all(0 <= r < blocks.k for r in mine) \
+            or len(mine) != (blocks.k if gather is None else 1):
+        raise ValueError(f"{name} takes blocks of the carry's {n} bodies, "
+                         f"its rank's block and a gather, or all k blocks "
+                         f"without one, got {blocks} and gather {gather!r}")
+
+
+def rows_force(cross, blocks: Blocks, gather):
+    """The plain row-range force(q, gm) of a whole state q (n, 3[, 2]):
+    cross(q_rows, q, gm) on the rows of each block of `blocks.mine`, then
+    `gather` of the blocks' forces (k, ni, 3[, 2]) in place."""
+    n, k, ni = blocks.n, blocks.k, blocks.ni
+
+    def force(q: torch.Tensor, gm: torch.Tensor) -> torch.Tensor:
+        out = q.new_zeros((k, ni) + tuple(q.shape[1:]))
+        for r in blocks.mine:
+            r0, r1 = blocks.rows(r)
+            if r1 > r0:
+                out[r, :r1 - r0] = cross(q[r0:r1].contiguous(), q, gm)
+        if gather is not None:
+            gather(out)
+        return out.flatten(0, 1)[:n]
+
+    return force
+
+
+def _launch_rows(wrapper, c: SimCarry, s0: int, s1: int, blocks: Blocks,
+                 gather, leapfrog: bool, step) -> None:
+    """A row-range chunk on a CUDA carry: the whole state into the slots
+    (k * ni rows each) of the first of a ping-pong pair of buffers, the
+    pre-launch, then each step one launch a block of `blocks.mine`
+    (step(in, out, r0, t, next), the kernel's C call with null out for the
+    pre-launch, which returns its CUDA error) and, but after the last,
+    `gather` of the slot the next force reads; then one `gather` of the
+    carry's slots, read back into c."""
+    from . import _build
+
+    lib = _build.load()
+    if lib.sim_step_slots() != SLOTS:
+        raise RuntimeError(f"the step kernels' state buffer has "
+                           f"{lib.sim_step_slots()} slots, not {SLOTS}")
+    n, k, ni = blocks.n, blocks.k, blocks.ni
+    tail = tuple(c.q.shape[1:])
+    st = c.q.new_zeros((2, SLOTS, k * ni) + tail)
+    state = (c.q, c.v, c.a, c.qc, c.vc)
+    kept = [slot for slot, x in enumerate(state) if x is not None]
+    for slot in kept:
+        st[0, slot, :n] = state[slot]
+    ptrs = [x.data_ptr() for x in st]
+    # each buffer's slot that the next step's force reads, in blocks
+    pos = [x[_SLOT_P if leapfrog else 0].unflatten(0, (k, ni)) for x in st]
+
+    def call(i, o, r0, t, nxt):
+        rc = step(i, o, r0, t, nxt, stream)
+        if rc != 0:
+            raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
+                               f"CUDA error {rc}")
+
+    with torch.cuda.device(c.q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        call(ptrs[0], None, blocks.mine[0] * ni, s0 + 1, 0)
+        for t in range(s0 + 1, s1 + 1):
+            i = (t - s0 - 1) & 1
+            for r in blocks.mine:
+                call(ptrs[i], ptrs[i ^ 1], r * ni, t, int(t < s1))
+            if gather is not None and t < s1:
+                gather(pos[i ^ 1])
+        wrapper.launches += 1 + (s1 - s0) * len(blocks.mine)
+        out = st[(s1 - s0) & 1]
+        if gather is not None:
+            carry = out[kept].unflatten(1, (k, ni)).movedim(1, 0)
+            carry = carry.contiguous()
+            gather(carry)
+            out[kept] = carry.movedim(0, 1).flatten(1, 2)
+    _read(c, out[:, :n])
+
+
+def _rows_head(m0, m_half, fst, blocks: Blocks) -> tuple:
+    """The arguments of a rows launch from m0 to k (sim_rows_*_step),
+    formed once a chunk: the host's time a step is the mesh's step."""
+    return (m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(), blocks.n,
+            blocks.ni, blocks.k)
+
+
+# the leapfrog's drifted positions, the slot its force reads
+# (csrc/sim_step.cuh SLOT_P)
+_SLOT_P = 5
+
+
+def _rows_common(kind: _Kind, c: SimCarry, m0, m_half, fst, s0: int,
+                 s1: int, blocks: Blocks, gather, integrator: str,
+                 compensated: bool) -> bool:
+    """The rows chunks' checks; whether the carry goes to the plain
+    version."""
+    _check(kind, c, m0, m_half, fst, s0, s1, integrator, compensated)
+    _check_rows(kind.name.replace("chunk", "rows_chunk"), blocks, gather,
+                c.q.shape[0])
+    return _on_cpu(c, kind.name.replace("chunk", "rows_chunk"))
+
+
+def sim_rows_chunk_f64_ref(c: SimCarry, m0: torch.Tensor,
+                           m_half: torch.Tensor, fst: torch.Tensor, s0: int,
+                           s1: int, *, blocks: Blocks, gather=None,
+                           G: float, eps: float, dt: float, integrator: str,
+                           compensated: bool,
+                           dist3_mode: str = "dsqrt") -> None:
+    """Plain PyTorch version of the binary64 row-range step: the eager
+    loop (`eager_chunk`) on the whole carry, whose force is kernel B1's
+    plain cross form on the rows of `blocks.mine` and `gather` of those
+    rows' forces, on c in place, on any device."""
+    _check(_F64, c, m0, m_half, fst, s0, s1, integrator, compensated)
+    _check_dist3(dist3_mode)
+    _check_rows("sim_rows_chunk_f64", blocks, gather, c.q.shape[0])
+
+    def cross(qi, q, gm):
+        return accel_f64_ref(qi[None], q[None], gm[None], eps=eps,
+                             dist3_mode=dist3_mode)[0]
+
+    eager_chunk(c, m0, m_half, fst.tolist(), s0, s1, G=G, eps=eps, dt=dt,
+                integrator=integrator, compensated=compensated,
+                dist3_mode=dist3_mode,
+                force=rows_force(cross, blocks, gather))
+
+
+def sim_rows_chunk_f64(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
+                       fst: torch.Tensor, s0: int, s1: int, *,
+                       blocks: Blocks, gather=None, G: float, eps: float,
+                       dt: float, integrator: str, compensated: bool,
+                       dist3_mode: str = "dsqrt") -> None:
+    """Steps s0+1..s1 of simulate's binary64 loop on a mesh rank's whole
+    carry c, in place (arguments as `sim_chunk_f64`): the rows of the
+    blocks `blocks.mine` (the rank's one, with `gather` an in-place
+    all_gather over the ranks' blocks (k, ...); or all k blocks in one
+    process, without a gather).
+
+    A CUDA carry runs the binary64 step kernel's row-range form: a
+    pre-launch, one launch a step and block, a gather a step but the last,
+    and one gather of the carry; all launches added to
+    `sim_rows_chunk_f64.launches`. A CPU carry runs
+    `sim_rows_chunk_f64_ref`. Bitwise `sim_chunk_f64` on every split."""
+    _check_dist3(dist3_mode)
+    if _rows_common(_F64, c, m0, m_half, fst, s0, s1, blocks, gather,
+                    integrator, compensated):
+        sim_rows_chunk_f64_ref(c, m0, m_half, fst, s0, s1, blocks=blocks,
+                               gather=gather, G=G, eps=eps, dt=dt,
+                               integrator=integrator,
+                               compensated=compensated,
+                               dist3_mode=dist3_mode)
+        return
+    from . import _build
+
+    lib = _build.load()
+    head = _rows_head(m0, m_half, fst, blocks)
+    tail = (INTEGRATORS.index(integrator), int(compensated),
+            DIST3_CODES[dist3_mode], G, dt, 0.5 * dt, eps * eps)
+    _launch_rows(sim_rows_chunk_f64, c, s0, s1, blocks, gather,
+                 integrator == "leapfrog",
+                 lambda i, o, r0, t, nxt, stream: lib.sim_rows_f64_step(
+                     i, o, *head, r0, *tail, t, nxt, stream))
+
+
+sim_rows_chunk_f64.launches = 0
+
+
+def _check_tile(tile: int) -> None:
+    if not isinstance(tile, int) or tile < 1:
+        raise ValueError(f"the float32 mesh's tile is a positive source "
+                         f"count, got {tile!r}")
+
+
+def sim_rows_chunk_f32_ref(c: SimCarry, m0: torch.Tensor,
+                           m_half: torch.Tensor, fst: torch.Tensor, s0: int,
+                           s1: int, *, blocks: Blocks, gather=None,
+                           G: float, eps: float, dt: float, integrator: str,
+                           compensated: bool, tile: int = TILE_J) -> None:
+    """Plain PyTorch version of the float32 row-range step: the eager loop
+    (`eager_chunk`) on the whole carry, whose force is the ordered sum at
+    `tile` of kernel B2's plain cross form (accel_f32_ordered) on the rows
+    of `blocks.mine` and `gather` of those rows' forces, on c in place,
+    on any device."""
+    _check(_F32, c, m0, m_half, fst, s0, s1, integrator, compensated)
+    _check_tile(tile)
+    _check_rows("sim_rows_chunk_f32", blocks, gather, c.q.shape[0])
+
+    def cross(qi, q, gm):
+        return accel_f32_ordered(qi, q, gm, eps=eps, tile=tile,
+                                 force=accel_f32_ref)
+
+    eager_chunk(c, m0, m_half, fst.tolist(), s0, s1, G=G, eps=eps, dt=dt,
+                integrator=integrator, compensated=compensated,
+                force=rows_force(cross, blocks, gather))
+
+
+def sim_rows_chunk_f32(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
+                       fst: torch.Tensor, s0: int, s1: int, *,
+                       blocks: Blocks, gather=None, G: float, eps: float,
+                       dt: float, integrator: str, compensated: bool,
+                       tile: int = TILE_J) -> None:
+    """Steps s0+1..s1 of simulate's float32 loop on a mesh rank's whole
+    carry c, in place, the force the mesh's ordered sum at `tile` (bitwise
+    `sim_chunk_f32` at tile 128); blocks and gather as
+    `sim_rows_chunk_f64` has them, the rest as `sim_chunk_f32`. A CUDA
+    carry runs the float32 step kernel's row-range form (its launches
+    added to `sim_rows_chunk_f32.launches`), a CPU carry
+    `sim_rows_chunk_f32_ref`."""
+    _check_tile(tile)
+    if _rows_common(_F32, c, m0, m_half, fst, s0, s1, blocks, gather,
+                    integrator, compensated):
+        sim_rows_chunk_f32_ref(c, m0, m_half, fst, s0, s1, blocks=blocks,
+                               gather=gather, G=G, eps=eps, dt=dt,
+                               integrator=integrator,
+                               compensated=compensated, tile=tile)
+        return
+    from . import _build
+
+    lib = _build.load()
+    f32 = torch.float32
+    head = _rows_head(m0, m_half, fst, blocks)
+    tail = (INTEGRATORS.index(integrator), int(compensated), tile,
+            scalar(G, f32), scalar(dt, f32), scalar(0.5 * dt, f32),
+            eps2_f32(eps))
+    _launch_rows(sim_rows_chunk_f32, c, s0, s1, blocks, gather,
+                 integrator == "leapfrog",
+                 lambda i, o, r0, t, nxt, stream: lib.sim_rows_f32_step(
+                     i, o, *head, r0, *tail, t, nxt, stream))
+
+
+sim_rows_chunk_f32.launches = 0
+
+
+def sim_rows_chunk_dd_ref(c: SimCarry, m0: torch.Tensor,
+                          m_half: torch.Tensor, fst: torch.Tensor, s0: int,
+                          s1: int, *, blocks: Blocks, gather=None, G: float,
+                          eps: float, dt: float, integrator: str) -> None:
+    """Plain PyTorch version of the double-double row-range step: the eager
+    loop (`eager_chunk_dd`) on the whole carry, whose force is kernel B4's
+    plain cross form on the rows of `blocks.mine` and `gather` of those
+    rows' forces, on c in place, on any device."""
+    _check(_DD, c, m0, m_half, fst, s0, s1, integrator, False)
+    _check_rows("sim_rows_chunk_dd", blocks, gather, c.q.shape[0])
+
+    def cross(qi, q, gm):
+        return accel_dd_ref(qi[None], q[None], gm[None], eps=eps)[0]
+
+    eager_chunk_dd(c, m0, m_half, fst.tolist(), s0, s1, G=G, eps=eps, dt=dt,
+                   integrator=integrator,
+                   force=rows_force(cross, blocks, gather))
+
+
+def sim_rows_chunk_dd(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
+                      fst: torch.Tensor, s0: int, s1: int, *,
+                      blocks: Blocks, gather=None, G: float, eps: float,
+                      dt: float, integrator: str) -> None:
+    """Steps s0+1..s1 of simulate's double-double loop on a mesh rank's
+    whole carry c, in place; blocks and gather as `sim_rows_chunk_f64`
+    has them, the rest as `sim_chunk_dd`. A CUDA carry runs the
+    double-double step kernel's row-range form (its launches added to
+    `sim_rows_chunk_dd.launches`), a CPU carry `sim_rows_chunk_dd_ref`."""
+    if _rows_common(_DD, c, m0, m_half, fst, s0, s1, blocks, gather,
+                    integrator, False):
+        sim_rows_chunk_dd_ref(c, m0, m_half, fst, s0, s1, blocks=blocks,
+                              gather=gather, G=G, eps=eps, dt=dt,
+                              integrator=integrator)
+        return
+    from . import _build
+
+    lib = _build.load()
+    head = _rows_head(m0, m_half, fst, blocks)
+    tail = (INTEGRATORS.index(integrator), G, dt, 0.5 * dt, *eps2_dd(eps))
+    _launch_rows(sim_rows_chunk_dd, c, s0, s1, blocks, gather,
+                 integrator == "leapfrog",
+                 lambda i, o, r0, t, nxt, stream: lib.sim_rows_dd_step(
+                     i, o, *head, r0, *tail, t, nxt, stream))
+
+
+sim_rows_chunk_dd.launches = 0

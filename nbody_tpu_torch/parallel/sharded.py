@@ -13,6 +13,13 @@ device is the identity).
 Every function here runs inside each rank on that rank's own shard (the
 SPMD of torch.distributed: what `shard_map` is to the JAX package).
 
+The graded solve and `simulate(mesh=)` do not run the ring: every rank
+holds the whole state in row blocks (`body_blocks`), a step kernel
+computes the rank's rows and `gather_blocks` fills the other blocks in
+place (ops/graded_step.graded_rows_chunk, ops/sim_step.sim_rows_chunk_*).
+The ring functions stay as the JAX package's API and as the references
+those paths are held against.
+
 `ring_accel_ordered` (JAX: parallel/solver_sharded.py:69-112) makes the
 sum independent of the mesh shape: one partial per global tile of `tile`
 sources, the partials added from 0 in ascending global tile order. Kernel
@@ -23,8 +30,8 @@ B2'): TILE = 128 is the port's default. The JAX package's default,
 n // body, fits the TPU's tiles; any tile the caller pins still gives the
 same bits on every mesh shape.
 
-Padding (the JAX package's utils/padding.py rule, kept here): a rank's rows
-must be a whole number of tiles, so the float32 bodies are padded at the
+Padding (the JAX package's utils/padding.py rule, kept here for the
+ring): a rank's rows must be a whole number of tiles, so the float32 bodies are padded at the
 end with bodies of zero mass at the origin, at rest. Their terms are
 w*dx with w = 0 * rsqrt(d2)^3, +-0, and a sum that starts at +0 and rounds
 to nearest is never -0, so adding them changes no bit of any real body;
@@ -33,6 +40,7 @@ they move, but nothing feels them.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -41,6 +49,7 @@ import torch.distributed as dist
 
 from ..ops.accel_f32 import TILE_J, accel_f32
 from ..ops.accel_f64 import accel_f64
+from ..ops.graded_step import Blocks
 from ..ops.integrate import scalar
 from .mesh import axis, mesh_device
 
@@ -68,6 +77,15 @@ def gather_blocks(x: torch.Tensor, group, me: int) -> None:
     is this rank's block x[me] (the output as the blocks' concatenation,
     the one form every backend takes)."""
     _all_gather(x.view(-1), x[me].view(-1), group=group)
+
+
+def body_blocks(mesh, n: int, *, body_axis: str = "body") -> tuple:
+    """(this rank's `Blocks` of n bodies over the body axis, and
+    gather(x), which fills the blocks x (k, ...) of the other ranks of the
+    axis in place: `gather_blocks` over its group)."""
+    group, me, k = axis(mesh, body_axis)
+    return Blocks(n, k, (me,)), functools.partial(gather_blocks, group=group,
+                                                  me=me)
 
 
 def ring_shift(tensors: list, group, me: int, k: int) -> list:

@@ -8,31 +8,26 @@ spreading the graded scenario over its two GPUs (hw5.cu:564-588).
     index r mod S), and so do the Problem-3 scenarios; they never talk to
     each other during a chunk. The P2 early exit (hw5.cu:398-402) applies
     only at scen = 1, where the rows share ranks, as in the JAX package.
-  * 'body' — in binary64 ('f64', and 'e64', 'dd', 'ddp', 'dd+', which the
-    port runs as binary64) and in double-double ('tf3') every rank holds
-    the whole state, in the blocks that an all_gather over 'body' makes
-    (ops/graded_step `Blocks`: block r holds q and v of the rows
-    [r * ni, (r + 1) * ni), ni = ceil(n / body)). A step of a rank is
-    ops/graded_step `graded_rows_chunk`: the force of its own rows against
-    every body, the update of those rows, one in-place all_gather of the
-    blocks, and the checks of the whole state, which every rank makes
-    alike (the JAX e64 design, solver_sharded.py:381-470). On a card that
-    is one launch of the graded step kernel and one NCCL call a step; a
-    card whose kernel fails raises. A row's serial fold does not depend on
-    which rows share its launch, and its update reads only the row, so the
-    answers are bitwise those of the one-device solve, on every mesh shape
-    and for every n (the last block padded). `tile` does not apply.
-    In 'f32' the bodies themselves are split over 'body' (padded with
-    zero-mass bodies to a multiple of body * tile), the force is the
-    ordered ring (parallel/sharded.py), and the planet's, asteroid's and
-    devices' rows that the checks read are taken with one all_reduce in
-    which only their owner adds a nonzero, exactly as `_extract_rows` does.
-    Bitwise the same on every mesh shape for one tile, and bitwise the
+  * 'body' — every rank holds the whole state, in the blocks that an
+    all_gather over 'body' makes (ops/graded_step `Blocks`: block r holds
+    q and v of the rows [r * ni, (r + 1) * ni), ni = ceil(n / body)). A
+    step of a rank is ops/graded_step `graded_rows_chunk`: the force of
+    its own rows against every body, the update of those rows, one
+    in-place all_gather of the blocks, and the checks of the whole state,
+    which every rank makes alike (the JAX e64 design,
+    solver_sharded.py:381-470). On a card that is one launch of the graded
+    step kernel and one NCCL call a step; a card whose kernel fails
+    raises. In binary64 ('f64', and 'e64', 'dd', 'ddp', 'dd+', which the
+    port runs as binary64) and double-double ('tf3') a row's serial fold
+    does not depend on which rows share its launch, and its update reads
+    only the row, so the answers are bitwise those of the one-device
+    solve, on every mesh shape and for every n (the last block padded);
+    `tile` does not apply. In 'f32' the force is the mesh's ordered sum at
+    `tile` (default 128): one partial per group of `tile` sources, added
+    in ascending order (parallel/sharded.py ring_accel_ordered, the JAX
+    package's _tile_partial order), which no split of the rows changes:
+    bitwise the same on every mesh shape for one tile, and bitwise the
     one-device 'f32' at tile 128.
-
-The 'f32' checks are the plain chunks' (ops/graded_step `_p12_chunk_ref`,
-`_p3_chunk_ref`), which the mesh hands its step and its row taker; they
-are eager PyTorch ops, on the card too.
 
 Checkpoints (`checkpoint_path`) are written by rank 0 and read by every
 rank, in the one-device layout (the real bodies only; the blocks are
@@ -55,156 +50,56 @@ import torch.distributed as dist
 from ..config import SimConfig
 from ..io import Scene
 from ..models import direct_sum as ds
-from ..ops.accel_dd import accel_dd
-from ..ops.accel_f64 import accel_f64
-from ..ops.graded_step import P3, P12, Blocks, _p3_chunk_ref, \
-    _p12_chunk_ref, arith, from_blocks, graded_rows_chunk, to_blocks
+from ..ops.graded_step import P3, P12, from_blocks, graded_rows_chunk, \
+    to_blocks
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from .mesh import axis, mesh_device
-from .sharded import TILE, all_gather, gather_blocks, ring_accel_ordered
+from .sharded import TILE, body_blocks
 
 F32 = torch.float32
 
 
 class Layout:
-    """How this rank holds a graded state of n bodies on the mesh.
-
-    Replicated (binary64, double-double): all n bodies, and the force rows
-    [r0, r1) of an equal split (ceil(n / k) a rank, fewer or none at the
-    end); the graded solve keeps them in `blocks`. Sharded (float32): n
-    padded to n_pad, a multiple of k * tile, and the rows [r0, r1) of
-    n_pad / k bodies."""
+    """How this rank holds a graded state of n bodies on the mesh: all n
+    bodies in the blocks of `blocks` (its own the rows [r * ni, (r + 1) *
+    ni) of an equal split, ceil(n / k) a rank, fewer or none at the end),
+    filled by `gather`, an in-place all_gather over 'body'."""
 
     def __init__(self, mesh, n: int, dtype, tile: int | None = None):
         _, self.si, self.S = axis(mesh, "scen")
-        self.group, self.bi, self.k = axis(mesh, "body")
+        self.blocks, self.gather = body_blocks(mesh, n)
+        self.bi = self.blocks.mine[0]
         self.dev = mesh_device(mesh)
         self.n, self.dtype = n, dtype
-        self.sharded = dtype == F32
         self.tile = tile or TILE
-        if self.sharded:
-            span = self.k * self.tile
-            self.n_pad = -(-n // span) * span
-            self.ni = self.n_pad // self.k
-            self.r0 = self.bi * self.ni
-            self.r1 = self.r0 + self.ni
-        else:
-            self.n_pad, self.ni = n, -(-n // self.k)
-            self.r0 = min(self.bi * self.ni, n)
-            self.r1 = min(self.r0 + self.ni, n)
-            self.blocks = Blocks(n, self.k, (self.bi,))
 
     def advance(self, mode: int, c, s0: int, s1: int,
                 roles=None) -> None:
         """Steps s0+1..s1 of this rank's graded carry: the row-range chunk
-        with an in-place all_gather over 'body' (replicated), or the plain
-        chunk whose step's force is the ordered ring, with the sharded row
-        taker (sharded)."""
-        if not self.sharded:
-            graded_rows_chunk(mode, c, s0, s1, self.blocks, functools.partial(
-                gather_blocks, group=self.group, me=self.bi), roles)
-            return
-        ar, force = arith(c.q), self.force(eps=c.eps)
-
-        def step(c, q, v, s):
-            return ar.step(c, q, v, s, force=force)
-
-        if mode == P12:
-            _p12_chunk_ref(c, s0, s1, step=step, take=self.take(),
-                           roles=roles)
-        else:
-            _p3_chunk_ref(c, s0, s1, step=step, take=self.take())
+        with an in-place all_gather over 'body'."""
+        graded_rows_chunk(mode, c, s0, s1, self.blocks, self.gather, roles,
+                          self.tile)
 
     def carry(self, c) -> None:
-        """Put this rank's carry c, its (q, v) in the one-device layout of
-        its bodies, in the layout `advance` takes (in place)."""
-        if not self.sharded:
-            c.q, c.v = to_blocks(c.q, c.v, self.k), None
+        """Put this rank's carry c, its (q, v) in the one-device layout, in
+        the layout `advance` takes (in place)."""
+        c.q, c.v = to_blocks(c.q, c.v, self.blocks.k), None
 
     def state(self, c) -> tuple:
-        """(q, v) of this rank's carry in the one-device layout of its
-        bodies."""
-        return (c.q, c.v) if self.sharded else from_blocks(c.q, self.n)
+        """(q, v) of this rank's carry in the one-device layout."""
+        return from_blocks(c.q, self.n)
 
     def first_row(self, c) -> None:
         """Keep only scenario row 0 of the carry's state (the P2 early
         exit)."""
         c.m0, c.m_half = c.m0[:1], c.m_half[:1]
-        if self.sharded:
-            c.q, c.v = c.q[:1], c.v[:1]
-        else:
-            c.q = c.q[:, :, :1].contiguous()
+        c.q = c.q[:, :, :1].contiguous()
 
-    def local(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        """This rank's part of a whole tensor of the real bodies along
-        `dim`: all of it, or (sharded) its rows of the zero-padded bodies."""
-        if not self.sharded:
-            return x
-        pad = list(x.shape)
-        pad[dim] = self.n_pad - self.n
-        x = torch.cat([x, x.new_zeros(pad)], dim=dim)
-        return x.narrow(dim, self.r0, self.ni).contiguous()
-
-    def whole(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        """The real bodies' whole tensor from this rank's part (a gather
-        over 'body' when sharded)."""
-        if not self.sharded:
-            return x
-        x = all_gather(x.movedim(dim, 0), self.group, self.k)
-        return x.flatten(0, 1).movedim(0, dim).narrow(dim, 0, self.n)
-
-    def force(self, *, eps: float, dist3: str = "dsqrt"):
-        """force(q, gm) of this layout for integrate's steps."""
-        if self.sharded:
-            return functools.partial(ring_accel_ordered, group=self.group,
-                                     eps=eps, tile=self.tile)
-        if self.dtype == ds.DD:
-            return self._rows_force(functools.partial(accel_dd, eps=eps), 4)
-        return self._rows_force(functools.partial(accel_f64, eps=eps,
-                                                  dist3_mode=dist3), 3)
-
-    def _rows_force(self, kernel, dims: int):
-        """This rank's rows through the kernel's cross form, then one
-        all_gather over 'body' (the last block padded to ni rows)."""
-        r0, r1, ni, k = self.r0, self.r1, self.ni, self.k
-
-        def force(q: torch.Tensor, gm: torch.Tensor) -> torch.Tensor:
-            one = q.dim() == dims - 1            # an unbatched scene
-            if one:
-                q, gm = q[None], gm[None]
-            q, gm = q.contiguous(), gm.contiguous()
-            if r1 - r0 == ni:
-                block = kernel(q[:, r0:r1].contiguous(), q, gm)
-            else:
-                block = q.new_zeros((q.shape[0], ni) + tuple(q.shape[2:]))
-                if r1 > r0:
-                    block[:, :r1 - r0] = kernel(q[:, r0:r1].contiguous(), q,
-                                                gm)
-            a = all_gather(block, self.group, k).movedim(0, 1)
-            a = a.flatten(1, 2)[:, :self.n]
-            return a[0] if one else a
-
-        return force
-
-    def take(self):
-        """The plain chunks' row taker of the sharded layout: the exact
-        extraction of rows idx from the body-sharded q (B, ni, 3): each
-        rank adds the rows it owns, the others zeros."""
-        r0, ni, group = self.r0, self.ni, self.group
-
-        def take(q: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-            loc = idx - r0
-            mine = (loc >= 0) & (loc < ni)
-            rows = torch.where(mine[None, :, None], q[:, loc.clamp(0, ni - 1)],
-                               0.0)
-            dist.all_reduce(rows, group=group)
-            return rows
-
-        return take
-
-    def finite(self, *tensors, context: str) -> None:
+    def finite(self, c, context: str) -> None:
         """Raise FloatingPointError on every rank if any rank's float32
-        state overflowed (one all_reduce of a flag, once a chunk)."""
+        positions (or P1's min d2) overflowed (one all_reduce of a flag,
+        once a chunk: the 'scen' rows hold other states)."""
+        tensors = [c.q[:, 0]] + ([] if c.min_d2 is None else [c.min_d2])
         ok = torch.tensor([int(all(bool(torch.isfinite(x).all())
                                    for x in tensors))], device=self.dev)
         dist.all_reduce(ok, op=dist.ReduceOp.MIN)
@@ -234,19 +129,11 @@ def _gathered(piece: dict) -> list:
     return out
 
 
-def _assemble(pieces: list, si: int, key: str, dim: int,
-              n: int | None = None) -> np.ndarray:
+def _assemble(pieces: list, si: int, key: str) -> np.ndarray:
     """The whole array `key` of scen row si from the gathered pieces: body
-    rank 0's, or, given the real body count n (sharded), the body ranks'
-    parts joined along `dim` and cut to n."""
-    parts = sorted(((p["bi"], p[key]) for p in pieces
-                    if p["si"] == si and p.get(key) is not None
-                    and (n is not None or p["bi"] == 0)),
-                   key=lambda part: part[0])
-    if n is None:
-        return parts[0][1]
-    return np.concatenate([x for _, x in parts], axis=dim).take(
-        np.arange(n), axis=dim)
+    rank 0's (every body rank holds the whole state)."""
+    return next(p[key] for p in pieces
+                if p["si"] == si and p["bi"] == 0 and p.get(key) is not None)
 
 
 def run_problems_12_sharded(scene: Scene, fst: np.ndarray, cfg: SimConfig,
@@ -257,7 +144,6 @@ def run_problems_12_sharded(scene: Scene, fst: np.ndarray, cfg: SimConfig,
     contract of models/direct_sum.run_problems_12, for any n (float32
     pads inside). Every rank returns the same result."""
     L = Layout(mesh, scene.n, dtype, tile)
-    n = scene.n if L.sharded else None      # cut gathered parts to n
     full = ds._p12_carry(scene, fst, cfg, L.dev, dtype)
     t0, fp = 0, None
     if checkpoint_path is not None:
@@ -268,8 +154,7 @@ def run_problems_12_sharded(scene: Scene, fst: np.ndarray, cfg: SimConfig,
     mine = [r for r in rows if r % L.S == L.si]
     c = dataclasses.replace(full)
     for name in ("q", "v", "m0", "m_half"):
-        setattr(c, name, L.local(getattr(full, name)[mine]))
-    c.q_snap, c.v_snap = L.local(full.q_snap), L.local(full.v_snap)
+        setattr(c, name, getattr(full, name)[mine])
     L.carry(c)
 
     def gather() -> tuple:
@@ -284,15 +169,15 @@ def run_problems_12_sharded(scene: Scene, fst: np.ndarray, cfg: SimConfig,
                          q_snap=_host(c.q_snap), v_snap=_host(c.v_snap))
         pieces = _gathered(piece)
         owner = 1 % L.S if 1 in rows else 0
-        out = {key: _assemble(pieces, owner, key, 1, n)
+        out = {key: _assemble(pieces, owner, key)
                for key in ("q_snap", "v_snap")}
         for key in ("hit", "arr"):
-            out[key] = _assemble(pieces, owner, key, 0).astype(np.int32)
-        out["min_d2"] = _assemble(pieces, 0, "min_d2", 0)
+            out[key] = _assemble(pieces, owner, key).astype(np.int32)
+        out["min_d2"] = _assemble(pieces, 0, "min_d2")
 
         def row(key, r):      # row r of its scen row's part
             si = r % L.S
-            return _assemble(pieces, si, key, 1, n)[
+            return _assemble(pieces, si, key)[
                 [m for m in rows if m % L.S == si].index(r)]
         q, v = (np.stack([row(key, r) for r in rows]) for key in ("q", "v"))
         return q, v, out
@@ -307,7 +192,7 @@ def run_problems_12_sharded(scene: Scene, fst: np.ndarray, cfg: SimConfig,
                 mine.index(0) if 0 in mine else None,
                 mine.index(1) if 1 in mine else None))
         if dtype == F32:
-            L.finite(c.q, c.min_d2, context=f"in P1/P2 after step {s1}")
+            L.finite(c, context=f"in P1/P2 after step {s1}")
         if checkpoint_path is not None:
             q, v, out = gather()
             if dist.get_rank() == 0:
@@ -340,7 +225,6 @@ def run_problem_3_sharded(scene: Scene, p12: ds.P12Result, fst: np.ndarray,
     if D == 0 or not idx.size:
         return saved
     L = Layout(mesh, scene.n, dtype, tile)
-    n = scene.n if L.sharded else None      # cut gathered parts to n
     full = ds._p3_carry(scene, p12, fst, cfg, idx, L.dev, dtype)
     cs = cfg.chunk_steps
     t0 = int(p12.arrivals[idx].min()) // cs * cs
@@ -366,7 +250,7 @@ def run_problem_3_sharded(scene: Scene, p12: ds.P12Result, fst: np.ndarray,
     mine = list(range(L.si, idx.size, L.S))
     c = dataclasses.replace(full, arr=full.arr[mine], hit=full.hit[mine])
     for name in ("q", "v", "m0", "m_half"):
-        setattr(c, name, L.local(getattr(full, name)[mine]))
+        setattr(c, name, getattr(full, name)[mine])
     L.carry(c)
 
     def gather() -> list:
@@ -374,9 +258,9 @@ def run_problem_3_sharded(scene: Scene, p12: ds.P12Result, fst: np.ndarray,
         return _gathered({"si": L.si, "bi": L.bi, "q": _host(q),
                           "v": _host(v), "hit": _host(c.hit)})
 
-    def whole(pieces: list, key: str, dim: int) -> np.ndarray:
+    def whole(pieces: list, key: str) -> np.ndarray:
         """Scenarios in idx order from the scen rows' parts."""
-        parts = [_assemble(pieces, r, key, dim, None if key == "hit" else n)
+        parts = [_assemble(pieces, r, key)
                  for r in range(min(L.S, idx.size))]
         out = np.empty((idx.size,) + parts[0].shape[1:], parts[0].dtype)
         for r, part in enumerate(parts):
@@ -392,17 +276,17 @@ def run_problem_3_sharded(scene: Scene, p12: ds.P12Result, fst: np.ndarray,
         if live:
             L.advance(P3, c, s0, s1)
         if dtype == F32:
-            L.finite(c.q, context=f"in P3 after step {s1}")
+            L.finite(c, context=f"in P3 after step {s1}")
         if path is not None:
             pieces = gather()
             if dist.get_rank() == 0:
                 save_checkpoint(path, step=-(-s1 // cs),
-                                q=whole(pieces, "q", 1),
-                                v=whole(pieces, "v", 1),
-                                extra={"hit_flag": whole(pieces, "hit", 0)},
+                                q=whole(pieces, "q"),
+                                v=whole(pieces, "v"),
+                                extra={"hit_flag": whole(pieces, "hit")},
                                 meta={"fingerprint": ck[0], "idx": ck[1],
                                       "t": s1})
-    saved[idx] = ~whole(gather(), "hit", 0)
+    saved[idx] = ~whole(gather(), "hit")
     return saved
 
 

@@ -13,12 +13,14 @@ ranks (`mesh`). On one device a chunk goes to the step kernel's wrapper
 of its precision (ops/sim_step: `sim_chunk_f32`, `sim_chunk_f64`,
 `sim_chunk_dd`): on a card one C call, one launch a step, as the JAX
 package compiles a chunk into one scan; on the CPU its plain version. On
-the mesh each step is a few eager PyTorch ops around the force
-(ops/sim_step.eager_chunk, eager_chunk_dd: the force kernel's cross form
-on this rank's rows and a gather, or the ordered ring), with the same bits
-as the step kernels on one device. `chunk` sets how often the host reads
-the state back for `on_chunk` and never changes the arithmetic, so
-results are bitwise invariant to it.
+the mesh every rank holds the whole state and a chunk goes to the row-range
+form of the same step kernel (ops/sim_step: `sim_rows_chunk_f32`,
+`sim_rows_chunk_f64`, `sim_rows_chunk_dd`): a step is one launch on the
+rank's rows and one in-place all_gather over 'body' of the positions the
+next step reads, with the same bits as the step kernels on one device
+(in 'f32' at tile 128). `chunk` sets how often the host reads the state
+back for `on_chunk` and never changes the arithmetic, so results are
+bitwise invariant to it.
 """
 
 from __future__ import annotations
@@ -35,8 +37,12 @@ from .io import Scene
 from .ops import ddfloat as ddf
 from .ops.forces import check_dist3
 from .ops.integrate import accel, accel_dd_state
-from .ops.sim_step import SimCarry, eager_chunk, eager_chunk_dd, m_eff_dd, \
-    sim_chunk_dd, sim_chunk_f32, sim_chunk_f64
+from .ops.accel_dd import accel_dd
+from .ops.accel_f32 import accel_f32_ordered
+from .ops.accel_f64 import accel_f64
+from .ops.sim_step import SimCarry, m_eff_dd, rows_force, sim_chunk_dd, \
+    sim_chunk_f32, sim_chunk_f64, sim_rows_chunk_dd, sim_rows_chunk_f32, \
+    sim_rows_chunk_f64
 from .physics import oscillation_table
 from .utils.rescale import IDENTITY, compute_rescale
 
@@ -110,14 +116,17 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
     is an error.
     mesh: a ('scen', 'body') DeviceMesh of ranks (parallel/mesh.make_mesh);
     every rank calls simulate and gets the whole final state, and
-    `device` is the mesh's. 'f32' splits the bodies over 'body' (padded
-    with zero-mass bodies) around the ordered ring: bitwise the same on
-    every mesh shape for one `tile` (default 128, kernel B2's tile, where
-    it is bitwise the one-device run). The binary64 precisions and the
-    double-double ones keep the whole state on every rank and split the
-    force's rows over 'body' through the cross form of kernel B1 or B4,
-    then gather them: bitwise the one-device run on every mesh shape.
-    tile: the float32 mesh's force tile; only with a mesh.
+    `device` is the mesh's. Every rank holds the whole state and steps
+    its rows (an equal split over 'body') through the row-range form of
+    its precision's step kernel, then gathers them: in binary64 and
+    double-double bitwise the one-device run on every mesh shape; in
+    'f32' the force is the mesh's ordered sum at `tile` (one partial per
+    group of `tile` sources, added in ascending order, as the JAX
+    package's ordered ring sums): bitwise the same on every mesh shape for
+    one tile, and at the default 128, kernel B2's tile, bitwise the
+    one-device run.
+    tile: the float32 mesh's force tile (a positive source count); only
+    with a mesh.
     `on_chunk` is called with a host SimState after every chunk of
     `chunk` steps (on the mesh on rank 0 alone; the checkpointing hook:
     pair it with utils.checkpoint.CheckpointPolicy); a double-double state
@@ -162,18 +171,19 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
         if precision in _BINARY64:
             dist3 = check_dist3(cfg.dist3_mode, precision)
         dtype, np_dtype = torch.float64, np.float64
-    layout = force = None
+    rows = seed = None
     if mesh is not None:
-        from .parallel.solver_sharded import Layout
-        layout = Layout(mesh, scene.n, ddf.NAME
-                        if precision in _DOUBLE_DOUBLE else dtype, tile)
-        force = layout.force(eps=run_cfg.eps, dist3=dist3)
+        from .parallel.sharded import TILE, body_blocks
+        rows = dict(zip(("blocks", "gather"), body_blocks(mesh, scene.n)))
+        tile = tile or TILE
+        seed = _seed_force(precision, rows, eps=run_cfg.eps, dist3=dist3,
+                           tile=tile)
         on_chunk = _on_rank0(on_chunk)
     if precision in _DOUBLE_DOUBLE:
         return _simulate_dd(run_scene, run_cfg, n_steps=n_steps, device=dev,
                             devices_on=devices_on, chunk=chunk,
                             integrator=integrator, on_chunk=on_chunk,
-                            force=force)
+                            rows=rows, seed=seed)
 
     # the oscillation table as host scalars of the state's dtype: each step
     # scales the device half-masses by one of them (the step kernels read
@@ -185,11 +195,7 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
     m_half = 0.5 * m0 * mask
 
     def put(x):
-        x = torch.from_numpy(np.asarray(x, dtype=np_dtype)).to(dev)
-        return x if layout is None else layout.local(x, dim=0)
-
-    def whole(x):
-        return x if layout is None else layout.whole(x, dim=0)
+        return torch.from_numpy(np.asarray(x, dtype=np_dtype)).to(dev)
 
     c = SimCarry(put(run_scene.q), put(run_scene.v))
     m0t, m_halft = put(m0), put(m_half)
@@ -198,30 +204,33 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
 
     def host_state(step):
         return SimState(step=step,
-                        q=whole(c.q).cpu().numpy().astype(np.float64) * inv,
-                        v=whole(c.v).cpu().numpy().astype(np.float64) * inv)
+                        q=c.q.cpu().numpy().astype(np.float64) * inv,
+                        v=c.v.cpu().numpy().astype(np.float64) * inv)
 
     if integrator == "leapfrog":
         # seeded at the initial positions with the first step's masses
         c.a = accel(c.q, m0t + m_halft * fst[min(1, n_steps)], G=G, eps=eps,
-                    dist3_mode=dist3, force=force)
+                    dist3_mode=dist3, force=seed)
     if compensated:
         c.qc, c.vc = torch.zeros_like(c.q), torch.zeros_like(c.v)
     kw = {"G": G, "eps": eps, "dt": dt, "integrator": integrator,
           "compensated": compensated}
-    if layout is None:
-        fst_t = torch.from_numpy(table).to(dev)
-        if precision == "f32":
-            def advance(s0, s1):
+    fst_t = torch.from_numpy(table).to(dev)
+    if precision == "f32":
+        def advance(s0, s1):
+            if rows is None:
                 sim_chunk_f32(c, m0t, m_halft, fst_t, s0, s1, **kw)
-        else:
-            def advance(s0, s1):
-                sim_chunk_f64(c, m0t, m_halft, fst_t, s0, s1,
-                              dist3_mode=dist3, **kw)
+            else:
+                sim_rows_chunk_f32(c, m0t, m_halft, fst_t, s0, s1, **rows,
+                                   tile=tile, **kw)
     else:
         def advance(s0, s1):
-            eager_chunk(c, m0t, m_halft, fst, s0, s1, force=force,
-                        dist3_mode=dist3, **kw)
+            if rows is None:
+                sim_chunk_f64(c, m0t, m_halft, fst_t, s0, s1,
+                              dist3_mode=dist3, **kw)
+            else:
+                sim_rows_chunk_f64(c, m0t, m_halft, fst_t, s0, s1, **rows,
+                                   dist3_mode=dist3, **kw)
 
     step = 0
     while step < n_steps:
@@ -231,6 +240,25 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
         if on_chunk is not None:
             on_chunk(host_state(step))
     return host_state(step)
+
+
+def _seed_force(precision: str, rows: dict, *, eps: float, dist3: str,
+                tile: int):
+    """The mesh's force for the leapfrog's seed, once a run: the force
+    kernel's cross form on this rank's rows (in 'f32' the ordered sum at
+    `tile`, one launch a group unless the tile is 128), then one all_gather
+    of the rows' forces (ops/sim_step.rows_force)."""
+    if precision in _DOUBLE_DOUBLE:
+        def cross(qi, q, gm):
+            return accel_dd(qi[None], q[None], gm[None], eps=eps)[0]
+    elif precision == "f32":
+        def cross(qi, q, gm):
+            return accel_f32_ordered(qi, q, gm, eps=eps, tile=tile)
+    else:
+        def cross(qi, q, gm):
+            return accel_f64(qi[None], q[None], gm[None], eps=eps,
+                             dist3_mode=dist3)[0]
+    return rows_force(cross, rows["blocks"], rows["gather"])
 
 
 def _on_rank0(on_chunk):
@@ -246,12 +274,12 @@ def _simulate_dd(scene: Scene, cfg: SimConfig, *, n_steps: int,
                  device: torch.device, devices_on: bool, chunk: int,
                  integrator: str,
                  on_chunk: Optional[Callable[[SimState], None]],
-                 force=None) -> SimState:
+                 rows: Optional[dict] = None, seed=None) -> SimState:
     """simulate() in double-double: the state, masses and update in
-    ops/ddfloat's arithmetic around kernel B4's force, on one device in
-    the double-double step kernel (sim_chunk_dd), on the mesh eager ops
-    around its `force`, on the raw scene; the host sees hi + lo rounded to
-    binary64."""
+    ops/ddfloat's arithmetic around kernel B4's force, in the
+    double-double step kernel (sim_chunk_dd; on the mesh its row-range
+    form over `rows`, the leapfrog seeded by `seed`), on the raw scene;
+    the host sees hi + lo rounded to binary64."""
     table = oscillation_table(cfg, n_steps)
     mask = scene.device_mask()
     m0 = scene.m * (1.0 if devices_on else (1.0 - mask))
@@ -272,18 +300,15 @@ def _simulate_dd(scene: Scene, cfg: SimConfig, *, n_steps: int,
     if integrator == "leapfrog":
         c.a = accel_dd_state(c.q, m_eff_dd(m0t, m_halft,
                                            float(table[min(1, n_steps)])),
-                             G=G, eps=eps, force=force)
+                             G=G, eps=eps, force=seed)
     kw = {"G": G, "eps": eps, "dt": dt, "integrator": integrator}
-    if force is None:
-        fst_t = torch.from_numpy(table).to(device)
+    fst_t = torch.from_numpy(table).to(device)
 
-        def advance(s0, s1):
+    def advance(s0, s1):
+        if rows is None:
             sim_chunk_dd(c, m0t, m_halft, fst_t, s0, s1, **kw)
-    else:
-        fst = table.tolist()
-
-        def advance(s0, s1):
-            eager_chunk_dd(c, m0t, m_halft, fst, s0, s1, force=force, **kw)
+        else:
+            sim_rows_chunk_dd(c, m0t, m_halft, fst_t, s0, s1, **rows, **kw)
 
     step = 0
     while step < n_steps:

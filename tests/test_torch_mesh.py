@@ -7,7 +7,8 @@ forms of kernels B1, B2 and B4, on the CPU.
   * the CLI over a mesh writes a `.out` byte-equal to the one-device
     CLI's: alone at world size 1 (f64, and f32 at the default tile 128),
     on 2x2 gloo ranks, and under `torchrun --standalone` on 3 ranks with
-    a ragged n=20;
+    a ragged n=20; a tile past the scene, which the CLI once refused for
+    the padding it made, on 1x2 gloo ranks (f32);
   * the plain versions' cross forms: rows in blocks, each against all the
     sources, concatenated, bitwise the self form (B1 in dsqrt and sqrt3,
     B4); B2's partials of 128-wide tiles added in ascending order bitwise
@@ -118,8 +119,6 @@ def test_mesh_sizes_refuse(axes, world, match):
     (["--tile", "8"], "--mesh"),
     (["--mesh", "scen2"], "axis=size"),
     (["--mesh", "scen=2,body=2"], "every rank"),
-    (["--mesh", "body=1", "--tile", "4096", "--precision", "f32"],
-     "pad the scene"),
 ])
 def test_cli_refuses(scene_file, tmp_path, extra, match):
     with pytest.raises(SystemExit, match=match):
@@ -140,6 +139,23 @@ def test_cli_alone_on_a_mesh_of_one(scene_file, tmp_path, precision):
     assert main([args[0], mesh, *args[1:], "--mesh", "scen=1,body=1"]) == 0
     assert _read(mesh) == _read(one)
     assert not dist.is_initialized()
+
+
+def test_cli_takes_a_tile_that_used_to_pad_the_scene(scene_file, tmp_path):
+    """Nothing is padded since the float32 mesh runs on row blocks, so a
+    tile the CLI refused for padding 20 bodies to 600 on a body=2 mesh
+    (--tile 300) runs: on 1x2 gloo ranks its .out is byte-equal to the
+    eager ordered ring's at that tile, which for a tile of all the bodies
+    is one group, kernel B2's own sum: the one-device f32 CLI's."""
+    args = ["--n-steps", str(STEPS), "--precision", "f32"]
+    one, mesh = str(tmp_path / "one.out"), str(tmp_path / "mesh.out")
+    assert main([scene_file, one, "--device", "cpu", *args]) == 0
+    rcs = run_ranks(W.cli_jobs, 2, ({"scen": 1, "body": 2},
+                                    [[scene_file, mesh, *args, "--tile",
+                                      "300"]]),
+                    workdir=str(tmp_path), timeout=TIMEOUT)
+    assert rcs == [[0]] * 2
+    assert _read(mesh) == _read(one)
 
 
 def test_cli_on_2x2_gloo_ranks(scene_file, tmp_path):

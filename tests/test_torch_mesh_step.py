@@ -28,6 +28,7 @@ bad (r0, ni, k) and bad roles. On the card's machine:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -50,7 +51,8 @@ CARD_SCENES = {20: (103, 20, 3), 1024: (1, 1024, 3)}
 P3_ARRIVALS = (5, 120, 200)
 PRECISIONS = {"dsqrt": (torch.float64, "dsqrt"),
               "sqrt3": (torch.float64, "sqrt3"),
-              "tf3": (ds.DD, "dsqrt")}
+              "tf3": (ds.DD, "dsqrt"),
+              "f32": (torch.float32, "dsqrt")}
 # what a case holds against the one-device run of its reference case
 CASES = {"p12": ("p12", None), "p12_exit": ("p12_exit", None),
          "p3": ("p3", None),
@@ -75,11 +77,17 @@ def cuda():
 
 def _carry(spec: tuple, precision: str, mode: int, device) -> gs.Carry:
     """The step-0 carry of driver `mode` on the fuzz scene spec (seed, n,
-    devices) as the graded solve builds it; Problem 3 with one row a
-    device, each from the initial state, arriving at P3_ARRIVALS."""
+    devices) as the graded solve builds it (rescaled in 'f32'); Problem 3
+    with one row a device, each from the initial state, arriving at
+    P3_ARRIVALS."""
+    from nbody_tpu_torch.utils.rescale import compute_rescale
+
     dtype, dist3 = PRECISIONS[precision]
     scene = W.fuzz_scene(*spec)
     cfg = SimConfig(n_steps=STEPS, dist3_mode=dist3)
+    if dtype == torch.float32:
+        rs = compute_rescale(scene, eps=cfg.eps, G=cfg.G)
+        scene, cfg = rs.apply_scene(scene), rs.apply_cfg(cfg)
     fst = oscillation_table(cfg)
     if mode == gs.P12:
         return ds._p12_carry(scene, fst, cfg, device, dtype)
@@ -101,12 +109,13 @@ def _keep(c: gs.Carry, rows: list, blocks: bool) -> None:
 
 
 def _run(case: str, spec: tuple, precision: str, device,
-         k: int | None = None) -> gs.Carry:
+         k: int | None = None, tile: int = 128, step=None) -> gs.Carry:
     """The carry of `case` after CHUNKS: through the one-device chunk (k
-    None) or the row-range chunk over k blocks, all computed in turn; in
-    the one-device layout either way. p12_exit drops P2's row after the
-    first chunk, as the P2 early exit does; p1 and p2 run one row, the
-    other on another rank of 'scen'."""
+    None; with `step`, the plain chunk around that step) or the row-range
+    chunk over k blocks (float32 at `tile`), all computed in turn; in the
+    one-device layout either way. p12_exit drops P2's row after the first
+    chunk, as the P2 early exit does; p1 and p2 run one row, the other on
+    another rank of 'scen'."""
     mode = gs.P3 if case == "p3" else gs.P12
     c = _carry(spec, precision, mode, device)
     roles = {"p1": (0, None), "p2": (None, 0)}.get(case)
@@ -118,10 +127,15 @@ def _run(case: str, spec: tuple, precision: str, device,
     for s0, s1 in CHUNKS:
         if case == "p12_exit" and s0:
             _keep(c, [0], k is not None)
-        if k is None:
+        if k is None and step is not None:
+            ref = gs._p3_chunk_ref if mode == gs.P3 else functools.partial(
+                gs._p12_chunk_ref, roles=roles)
+            ref(c, s0, s1, step=step)
+        elif k is None:
             gs.graded_chunk(mode, c, s0, s1)
         else:
-            gs.graded_rows_chunk(mode, c, s0, s1, blocks, roles=roles)
+            gs.graded_rows_chunk(mode, c, s0, s1, blocks, roles=roles,
+                                 tile=tile)
     if k is not None:
         c.q, c.v = gs.from_blocks(c.q, spec[1])
     return c
@@ -219,7 +233,7 @@ def _p12_blocks(k: int = 2):
 
 @pytest.mark.parametrize("change,kw,match", [
     ("p123", {}, "P12 or P3"),
-    ("f32", {}, "float64 or double-double"),
+    ("f16", {}, "float64, float32 or double-double"),
     ("v", {}, "v None"),
     ("shape", {}, "blocks"),
     (None, {"roles": (0, 0)}, "roles"),
@@ -235,8 +249,8 @@ def test_rows_chunk_refuses(change, kw, match):
     mode = gs.P12
     if change == "p123":
         mode = gs.P123
-    elif change == "f32":
-        c.q = c.q.float()
+    elif change == "f16":
+        c.q = c.q.half()
     elif change == "v":
         c.v = c.q.clone()
     elif change == "shape":
@@ -255,7 +269,7 @@ def test_rows_chunk_refuses_cuda_without_a_card():
     c = _p12_blocks()
     with pytest.raises(ValueError, match="cuda"):
         gs._launch_rows(gs.graded_step_f64, gs.P12, c, 0, 1,
-                        gs.Blocks(20, 2, (0, 1)), None, (0, 1))
+                        gs.Blocks(20, 2, (0, 1)), None, (0, 1), 128)
 
 
 def _card_params():
@@ -272,10 +286,11 @@ def _card_params():
 def test_rows_kernel_over_k_blocks_bitwise_one_device_kernel_on_card(
         cuda, case, precision, k, n):
     spec = CARD_SCENES[n]
-    before = gs.graded_step_dd.launches + gs.graded_step_f64.launches
+    kernels = (gs.graded_step_dd, gs.graded_step_f64, gs.graded_step_f32)
+    before = sum(fn.launches for fn in kernels)
     got = _run(case, spec, precision, cuda, k)
     torch.cuda.synchronize()
-    launched = gs.graded_step_dd.launches + gs.graded_step_f64.launches
+    launched = sum(fn.launches for fn in kernels)
     assert launched - before == k * STEPS + len(CHUNKS)
     want = _reference(CASES[case][0], spec, precision, cuda)
     assert _differ(case, got, want) == []

@@ -16,7 +16,7 @@ On the CPU:
   * a run stopped at half its steps, its carry saved and loaded, and
     resumed, bitwise equal to the run that never stopped;
   * simulate routes one-device binary64 (also when asked for 'cuda') to
-    the wrapper, the mesh to kernel B1's cross form;
+    the wrapper, the mesh to the row-range form of the step kernel;
   * the wrapper's refusals, and the build covering the new sources.
 On a card (marked `cuda`, skipped here) the kernel is held bitwise against
 the plain version and against the eager loop around kernel B1:
@@ -354,14 +354,18 @@ def test_simulate_routes_binary64_to_the_step_kernel(monkeypatch, device,
 
 @pytest.mark.parametrize("shape", [(1, 1), (1, 2)])
 def test_mesh_runs_b1_cross_form_not_the_step_kernel(shape):
+    """Since the mesh's row-range step kernels, the name's old route is
+    gone: an f64 Euler simulate on the mesh makes one call of the binary64
+    step kernel's row-range chunk, and no B1 cross form from simulate
+    itself nor the one-device chunk."""
     import torch_mesh_workers as W
     from nbody_tpu_torch.parallel.spawn import run_ranks
 
-    out = run_ranks(W.simulate_routes, int(np.prod(shape)),
-                    ({"scen": shape[0], "body": shape[1]}, _scene(7), 6),
-                    timeout=120)
+    out = run_ranks(W.simulate_step_routes, int(np.prod(shape)),
+                    ({"scen": shape[0], "body": shape[1]}, _scene(7), 6,
+                     "f64"), timeout=120)
     for counts in out:
-        assert counts == {"sim_chunk_f64": 0, "accel_f64": 6}
+        assert counts == {"sim_rows_chunk_f64": 1}
 
 
 # --- the wrapper's refusals ------------------------------------------------

@@ -18,7 +18,7 @@ On the CPU:
     resumed, bitwise equal to the run that never stopped;
   * simulate routes one-device 'tf3', 'ddp' and 'dd+' (also when asked
     for 'cuda') to the wrapper, kernel B4's own wrapper only for the
-    leapfrog's seed; the mesh to kernel B4's cross form;
+    leapfrog's seed; the mesh to the row-range form of the step kernel;
   * the wrapper's refusals, and the build covering the new sources.
 On a card (marked `cuda`, skipped here) the kernel is held bitwise against
 the plain version on the card and the eager loop around kernel B4:
@@ -278,6 +278,10 @@ def test_simulate_routes_double_double_to_the_step_kernel(
 
 @pytest.mark.parametrize("shape", [(1, 1), (1, 2)])
 def test_mesh_runs_b4_cross_form_not_the_step_kernel(shape):
+    """Since the mesh's row-range step kernels, the name's old route is
+    gone: a tf3 Euler simulate on the mesh makes one call of the
+    double-double step kernel's row-range chunk, and no B4 cross form
+    from simulate itself nor the one-device chunk."""
     import torch_mesh_workers as W
     from nbody_tpu_torch.parallel.spawn import run_ranks
 
@@ -285,8 +289,7 @@ def test_mesh_runs_b4_cross_form_not_the_step_kernel(shape):
                     ({"scen": shape[0], "body": shape[1]}, _scene(7, 8), 4,
                      "tf3"), timeout=120)
     for counts in out:
-        assert counts["sim_chunk_dd"] == 0
-        assert counts["accel_dd"] == 4
+        assert counts == {"sim_rows_chunk_dd": 1}
 
 
 # --- the wrapper's refusals ------------------------------------------------

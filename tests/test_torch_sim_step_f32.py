@@ -21,7 +21,7 @@ On the CPU:
     resumed, bitwise equal to the run that never stopped;
   * simulate routes one-device 'f32' (also when asked for 'cuda') to the
     wrapper, kernel B2's own wrapper only for the leapfrog's seed; the
-    mesh to the ordered ring;
+    mesh to the row-range form of the step kernel;
   * the wrapper's refusals, and the build covering the new sources.
 On a card (marked `cuda`, skipped here) the kernel is held bitwise against
 the plain version on the card and the eager loop around kernel B2, in
@@ -322,6 +322,10 @@ def test_simulate_routes_f32_to_the_step_kernel(monkeypatch, device,
 
 @pytest.mark.parametrize("shape", [(1, 1), (1, 2)])
 def test_mesh_runs_the_ordered_ring_not_the_step_kernel(shape):
+    """Since the mesh's row-range step kernels, the name's old route is
+    gone: an Euler f32 simulate on the mesh makes one call of the float32
+    step kernel's row-range chunk and runs neither the ordered ring nor
+    the one-device chunk."""
     import torch_mesh_workers as W
     from nbody_tpu_torch.parallel.spawn import run_ranks
 
@@ -329,8 +333,7 @@ def test_mesh_runs_the_ordered_ring_not_the_step_kernel(shape):
                     ({"scen": shape[0], "body": shape[1]}, _scene(7), 6,
                      "f32"), timeout=120)
     for counts in out:
-        assert counts["sim_chunk_f32"] == 0
-        assert counts["ring_accel_ordered"] == 6
+        assert counts == {"sim_rows_chunk_f32": 1}
 
 
 # --- the wrapper's refusals ------------------------------------------------

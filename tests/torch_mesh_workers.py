@@ -119,55 +119,34 @@ def simulate_jobs(axes: dict, jobs: list) -> dict:
     return out
 
 
-def simulate_routes(axes: dict, scene, n_steps: int) -> dict:
-    """Calls on this rank of the binary64 step kernel's wrapper and of
-    kernel B1's (the mesh's cross form) in an f64 Euler simulate() of
-    n_steps on one mesh."""
-    import sys
-
-    from nbody_tpu_torch import simulate
-    from nbody_tpu_torch.parallel import solver_sharded
-
-    sim_module = sys.modules["nbody_tpu_torch.simulate"]
-    counts = {"sim_chunk_f64": 0, "accel_f64": 0}
-
-    def spy(name, fn):
-        def wrapped(*args, **kw):
-            counts[name] += 1
-            return fn(*args, **kw)
-        return wrapped
-
-    sim_module.sim_chunk_f64 = spy("sim_chunk_f64", sim_module.sim_chunk_f64)
-    solver_sharded.accel_f64 = spy("accel_f64", solver_sharded.accel_f64)
-    simulate(scene, mesh=_mesh(axes), n_steps=n_steps, precision="f64")
-    return counts
-
-
 def simulate_step_routes(axes: dict, scene, n_steps: int,
                          precision: str) -> dict:
-    """Calls on this rank of the one-device step kernels' wrappers and of
-    the mesh's force (the ordered ring in 'f32', kernel B4's cross form in
-    'tf3') in a `precision` Euler simulate() of n_steps on one mesh."""
+    """Calls on this rank of the step kernels' wrappers, one-device and
+    row-range, of the force kernels' wrappers that simulate calls itself
+    (the mesh's leapfrog seed) and of the ordered ring, in a `precision`
+    Euler simulate() of n_steps on one mesh; the wrappers that were never
+    called are left out."""
     import sys
 
     from nbody_tpu_torch import simulate
-    from nbody_tpu_torch.parallel import solver_sharded
+    from nbody_tpu_torch.parallel import sharded
 
     sim_module = sys.modules["nbody_tpu_torch.simulate"]
-    counts = dict.fromkeys(("sim_chunk_f64", "sim_chunk_f32", "sim_chunk_dd",
-                            "ring_accel_ordered", "accel_dd"), 0)
+    counts = {}
 
     def spy(name, fn):
         def wrapped(*args, **kw):
-            counts[name] += 1
+            counts[name] = counts.get(name, 0) + 1
             return fn(*args, **kw)
         return wrapped
 
-    for name in ("sim_chunk_f64", "sim_chunk_f32", "sim_chunk_dd"):
+    for name in ("sim_chunk_f64", "sim_chunk_f32", "sim_chunk_dd",
+                 "sim_rows_chunk_f64", "sim_rows_chunk_f32",
+                 "sim_rows_chunk_dd", "accel_f64", "accel_f32_ordered",
+                 "accel_dd"):
         setattr(sim_module, name, spy(name, getattr(sim_module, name)))
-    for name in ("ring_accel_ordered", "accel_dd"):
-        setattr(solver_sharded, name, spy(name, getattr(solver_sharded,
-                                                        name)))
+    sharded.ring_accel_ordered = spy("ring_accel_ordered",
+                                     sharded.ring_accel_ordered)
     simulate(scene, mesh=_mesh(axes), n_steps=n_steps, precision=precision)
     return counts
 
@@ -237,3 +216,167 @@ def scene_fields(scene) -> dict:
     """A scene as a dict (what a test hands the JAX package)."""
     return {f.name: getattr(scene, f.name)
             for f in dataclasses.fields(scene)}
+
+
+class FakeSimLib:
+    """A stand-in for the kernel library's simulate entry points on the
+    CPU: `sim_rows_f64_step` and `sim_rows_f32_step` emulate the step
+    kernels' row-range form (csrc/sim_step.cuh) in PyTorch ops on the
+    buffers their pointers name (the CPU tensors' own memory), so that
+    ops/sim_step's host loop around them (slots, ping-pong, pre-launch,
+    gathers, the carry's read-back) runs on gloo ranks. Each op is the
+    eager loop's; the force is the plain cross form on the rows (float32:
+    the ordered sum at the tile)."""
+
+    def __init__(self, eps: float, dist3: str = "dsqrt"):
+        self.eps, self.dist3 = eps, dist3
+        self.calls = []
+
+    @staticmethod
+    def sim_step_slots() -> int:
+        return 10
+
+    def sim_rows_f64_step(self, i, o, m0, mh, fst, n, ni, k, r0, integ,
+                          comp, dist3, G, dt, kick, eps2, t, nxt, stream):
+        import torch
+        return self._step(torch.float64, i, o, m0, mh, fst, n, ni, k, r0,
+                          integ, comp, None, G, dt, kick, t, nxt)
+
+    def sim_rows_f32_step(self, i, o, m0, mh, fst, n, ni, k, r0, integ,
+                          comp, tile, G, dt, kick, eps2, t, nxt, stream):
+        import torch
+        return self._step(torch.float32, i, o, m0, mh, fst, n, ni, k, r0,
+                          integ, comp, tile, G, dt, kick, t, nxt)
+
+    def _step(self, dtype, i, o, m0p, mhp, fstp, n, ni, k, r0, integ, comp,
+              tile, G, dt, kick, t, nxt):
+        import ctypes
+
+        import torch
+
+        from nbody_tpu_torch.ops.accel_f32 import accel_f32_ordered, \
+            accel_f32_ref
+        from nbody_tpu_torch.ops.accel_f64 import accel_f64_ref
+
+        self.calls.append((r0, t, nxt, o is None))
+        ct = ctypes.c_double if dtype == torch.float64 else ctypes.c_float
+
+        def view(ptr, count):
+            return torch.frombuffer((ct * count).from_address(ptr),
+                                    dtype=dtype)
+
+        Q, V, A, QC, VC, P, VH, PC, VHC, GM = range(10)
+        rows = k * ni
+        m0, mh = view(m0p, n), view(mhp, n)
+        fst = view(fstp, t + 2 if nxt else t + 1)
+        lf = integ == 1
+
+        def comp_add(x, c, d):
+            y = d - c
+            s = x + y
+            return s, (s - x) - y
+
+        def add(x, c, d):
+            return comp_add(x, c, d) if comp else (x + d, None)
+
+        def gm_of(buf, step):
+            buf[GM].view(-1)[:n] = (m0 + mh * float(fst[step])) * G
+
+        def kick_drift(buf, a, b, q, v, acc, qc, vc):
+            buf[VH, a:b], vhc = add(v, vc, acc * kick)
+            buf[P, a:b], pc = add(q, qc, buf[VH, a:b] * dt)
+            if comp:
+                buf[VHC, a:b], buf[PC, a:b] = vhc, pc
+
+        src = view(i, 10 * rows * 3).view(10, rows, 3)
+        if o is None:                    # the chunk's pre-launch
+            gm_of(src, t)
+            if lf:
+                kick_drift(src, 0, n, src[Q, :n], src[V, :n], src[A, :n],
+                           src[QC, :n], src[VC, :n])
+            return 0
+        out = view(o, 10 * rows * 3).view(10, rows, 3)
+        if nxt:
+            gm_of(out, t + 1)
+        a, b = r0, min(r0 + ni, n)
+        if b <= a:
+            return 0
+        pos = src[P if lf else Q, :n]
+        gm = src[GM].view(-1)[:n]
+        qi = pos[a:b].contiguous()
+        if dtype == torch.float64:
+            acc = accel_f64_ref(qi[None], pos[None], gm[None], eps=self.eps,
+                                dist3_mode=self.dist3)[0]
+        else:
+            acc = accel_f32_ordered(qi, pos.contiguous(), gm.contiguous(),
+                                    eps=self.eps, tile=tile,
+                                    force=accel_f32_ref)
+        q = pos[a:b]
+        v = src[VH if lf else V, a:b]
+        qc, vc = (src[PC, a:b], src[VHC, a:b]) if lf else \
+            (src[QC, a:b], src[VC, a:b])
+        out[V, a:b], vc2 = add(v, vc, acc * (kick if lf else dt))
+        if comp:
+            out[VC, a:b] = vc2
+        if not lf:
+            out[Q, a:b], qc2 = add(q, qc, out[V, a:b] * dt)
+            if comp:
+                out[QC, a:b] = qc2
+            return 0
+        out[Q, a:b], out[A, a:b] = q, acc
+        if comp:
+            out[QC, a:b] = qc
+        if nxt:
+            kick_drift(out, a, b, q, out[V, a:b], acc, qc, vc2)
+        return 0
+
+
+def fake_kernels(monkeypatch_set, lib) -> None:
+    """Route ops/sim_step's CUDA path to `lib` on CPU tensors:
+    monkeypatch_set(obj, name, value) is pytest's monkeypatch.setattr or
+    plain setattr in a rank."""
+    import contextlib
+    import types
+
+    import torch
+
+    from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.ops import sim_step as ss
+
+    monkeypatch_set(_build, "load", lambda: lib)
+    monkeypatch_set(ss, "_on_cpu", lambda c, name: False)
+    monkeypatch_set(torch.cuda, "device",
+                    lambda dev: contextlib.nullcontext())
+    monkeypatch_set(torch.cuda, "current_stream",
+                    lambda: types.SimpleNamespace(cuda_stream=0))
+
+
+def sim_rows_emulated(axes: dict, precision: str, jobs: list) -> dict:
+    """{label: (q, v, a, qc, vc) as numpy (None where absent)} of
+    ops/sim_step's row-range chunks on this rank through FakeSimLib, the
+    rank's block of the 'body' axis and the real in-place gather; a job is
+    (label, q, v, a, m0, m_half, fst, chunks, kw) with host arrays, kw
+    the chunk's keywords (G, eps, dt, integrator, compensated, tile)."""
+    import torch
+
+    from nbody_tpu_torch.ops import sim_step as ss
+    from nbody_tpu_torch.parallel.sharded import body_blocks
+
+    mesh = _mesh(axes)
+    out = {}
+    for label, q, v, a, m0, m_half, fst, chunks, kw in jobs:
+        lib = FakeSimLib(kw["eps"])
+        fake_kernels(setattr, lib)
+        blocks, gather = body_blocks(mesh, q.shape[0])
+        t = (lambda x: None if x is None else torch.from_numpy(x.copy()))
+        c = ss.SimCarry(t(q), t(v), t(a))
+        if kw.get("compensated"):
+            c.qc, c.vc = torch.zeros_like(c.q), torch.zeros_like(c.v)
+        fn = ss.sim_rows_chunk_f64 if precision == "f64" else \
+            ss.sim_rows_chunk_f32
+        for s0, s1 in chunks:
+            fn(c, t(m0), t(m_half), t(fst), s0, s1, blocks=blocks,
+               gather=gather, **kw)
+        out[label] = tuple(None if x is None else x.numpy()
+                           for x in (c.q, c.v, c.a, c.qc, c.vc))
+    return out
