@@ -1,4 +1,4 @@
-"""Phase timers and the pair-interaction work count."""
+"""Phase timers, a device trace and the pair-interaction work count."""
 
 from __future__ import annotations
 
@@ -34,6 +34,25 @@ class PhaseTimers:
         rec = {"phases_s": dict(self.phases), **extra}
         print(json.dumps(rec), file=stream, flush=True)
         return rec
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str | None):
+    """A torch.profiler trace of the block (the CPU, and the card where
+    there is one) written into `logdir` for TensorBoard or Perfetto (a
+    `*.pt.trace.json`); does nothing if logdir is falsy."""
+    if not logdir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, \
+        tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield
 
 
 def pair_interactions(n: int, n_steps: int, n_sims: int) -> int:
