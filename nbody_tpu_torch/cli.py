@@ -150,7 +150,7 @@ def _solve(args, cfg, device, mesh) -> int:
     from .ops.accel_dd import accel_dd
     from .ops.accel_f32 import accel_f32
     from .ops.accel_f64 import accel_f64
-    from .ops.graded_step import graded_step_dd, graded_step_f32, \
+    from .ops.graded_step import GRAPHS, graded_step_dd, graded_step_f32, \
         graded_step_f64
     from .ops.sim_step import sim_chunk_dd, sim_chunk_f32, sim_chunk_f64, \
         sim_rows_chunk_dd, sim_rows_chunk_f32, sim_rows_chunk_f64
@@ -162,6 +162,7 @@ def _solve(args, cfg, device, mesh) -> int:
                sim_chunk_dd, sim_rows_chunk_f64, sim_rows_chunk_f32,
                sim_rows_chunk_dd)
     launches0 = [k.launches for k in kernels]
+    graphs0 = (GRAPHS.replays, GRAPHS.captures, GRAPHS.capture_s)
     t0 = time.perf_counter()
     with timers.phase("read_input"):
         scene = read_input(args.input)
@@ -194,6 +195,11 @@ def _solve(args, cfg, device, mesh) -> int:
             "pairs_per_sec": pairs / elapsed,
             **{f"{k.__name__}_launches": k.launches - k0
                for k, k0 in zip(kernels, launches0)},
+            # the graded chunks' CUDA graphs: a replay a chunk, a capture
+            # a chunk shape (ops/graded_step.ChunkGraphs)
+            "graph_replays": GRAPHS.replays - graphs0[0],
+            "graph_captures": GRAPHS.captures - graphs0[1],
+            "graph_capture_s": GRAPHS.capture_s - graphs0[2],
             "answers": {"min_dist": ans.min_dist,
                         "hit_time_step": ans.hit_time_step,
                         "gravity_device_id": ans.gravity_device_id,

@@ -3,20 +3,30 @@
 // and the host loops that advance them: a chunk of steps on one device, or
 // one step of a rank of the mesh.
 //
-// A chunk from step s0 to s1 is s1 - s0 launches of a step kernel, one per
-// step t, and one launch of a check kernel. The launch of step t writes the
+// A chunk of K steps from step s0 is K launches of a step kernel, one per
+// step t = s0 + k (k = 1 .. K, its offset in the chunk), and one launch of
+// a check kernel. A launch takes its offset by value and reads s0 from a
+// device word (GradedArgs s0), so that the loop, captured once into a CUDA
+// graph (ops/graded_step.py), serves every chunk of K steps: everything
+// that depends on the absolute step (fst[t], md2[p], the parity of the
+// arrival buffers, the Problem-3 freeze test, the fused driver's source
+// row) is computed on the card from *s0 + k. The launch of step t writes the
 // state of step t into the other buffer of a ping-pong pair, so no block
 // reads positions another block is writing and no grid-wide barrier is
 // needed. Before its step, block (0, 0) of the launch of step t runs the
 // checks of step t - 1 on the state that launch t - 1 wrote (complete at
-// the kernel boundary); the check kernel runs those of step s1. The checks
-// write only the decision carries (min d2, hit, arrivals, snapshots,
-// flags), which no other block of the launch reads, with one exception:
+// the kernel boundary); the check kernel runs those of step s0 + K. The
+// checks write only the decision carries (min d2, hit, arrivals,
+// snapshots, flags), which no other block of the launch reads, with one
+// exception:
 // the arrival steps that the fused driver's Problem-3 rows read to find out
 // whether they mirror the Problem-2 row. They live in two buffers: the
 // checks of step p read arr[(p + 1) & 1] and write arr[p & 1], so the
 // launch that checks step p reads, in every block, the arrivals as they
-// stood before step p. No atomics: every result is bitwise repeatable.
+// stood before step p. Both buffers hold the same arrivals on entry to a
+// chunk, and the check kernel leaves them so at its end: the arrivals of a
+// chunk's last step lie in arr[0] whatever its parity. No atomics: every
+// result is bitwise repeatable.
 //
 // The checks are the drivers' (models/direct_sum.py), in their order:
 //   P12  (rows P1 devices off, P2 devices on): min of P1's planet-asteroid
@@ -76,6 +86,7 @@ struct GradedArgs {
     Blocks L;     // the state's layout
     int tile;     // float32 on the mesh: the ordered sum's source groups
                   // (f32_force.cuh GroupTiles); unused elsewhere
+    const int* s0;  // the chunk's base step, on the device
 };
 
 // The arguments of a chunk on one device: all n rows in one block, P1 in
@@ -86,7 +97,8 @@ GradedArgs<T> graded_args(const T* m0, const T* mh, const T* fst,
                           long long* arr, long long* arr2, long long* hit,
                           unsigned char* flag, T* min_d2, T* q_snap,
                           T* v_snap, int mode, int B, int n, int D,
-                          int planet, T G, T dt, T eps2, T r2) {
+                          int planet, T G, T dt, T eps2, T r2,
+                          const int* s0) {
     GradedArgs<T> a{m0, mh, fst, md2, others, {arr, arr2}, hit, flag,
                     min_d2, q_snap, v_snap, mode, B, n, D, planet, G, dt,
                     eps2, r2};
@@ -95,7 +107,15 @@ GradedArgs<T> graded_args(const T* m0, const T* mh, const T* fst,
     a.r0 = 0;
     a.L = Blocks{n, static_cast<long long>(B) * n * 3};
     a.tile = 0;
+    a.s0 = s0;
     return a;
+}
+
+// The step of the launch at offset `off` in its chunk
+template <typename T>
+__device__ __forceinline__ int graded_step_at(const GradedArgs<T>& a,
+                                              int off) {
+    return *a.s0 + off;
 }
 
 // The end of this launch's rows
@@ -162,12 +182,13 @@ __device__ void copy_row(const GradedArgs<T>& a, const T* q, const T* v,
 }
 
 // The checks of step p on the state (q, v) of step p, by every thread of
-// one block. `mirror`: copy the P2 row into the P3 rows that were pending
-// before p (the check kernel at a chunk's end; within a chunk the next
-// step's launch reads P2 in their place).
+// one block. `closing`, the check kernel at a chunk's end: copy the P2 row
+// into the P3 rows that were pending before p (within a chunk the next
+// step's launch reads P2 in their place), and leave the arrivals in both
+// buffers.
 template <typename T>
 __device__ void graded_check(const GradedArgs<T>& a, T* q, T* v, int p,
-                             bool mirror) {
+                             bool closing) {
     const int tid = threadIdx.x;
     const size_t row = static_cast<size_t>(a.n) * 3;
     if (a.mode == MODE_P3) {
@@ -183,7 +204,7 @@ __device__ void graded_check(const GradedArgs<T>& a, T* q, T* v, int p,
     }
     if (a.p2 < 0) return;  // P1 alone (after the P2 early exit, or a mesh)
     const int p2 = a.p2;
-    const long long* arr_rd = a.arr[(p + 1) & 1];
+    long long* arr_rd = a.arr[(p + 1) & 1];
     long long* arr_wr = a.arr[p & 1];
     for (int k = tid; k < a.D; k += blockDim.x) {
         const long long before = arr_rd[k];
@@ -205,12 +226,16 @@ __device__ void graded_check(const GradedArgs<T>& a, T* q, T* v, int p,
         for (int k = 0; k < a.D; ++k)
             if (arr_wr[k] == p)  // arrivals happen only at the step checked
                 copy_row(a, q, v, p2, a.q_snap + k * row, a.v_snap + k * row);
-    } else if (mirror) {
+    } else if (closing) {
         // P123 runs on one device only (one block: a row is contiguous)
         for (int k = 0; k < a.D; ++k)
             if (arr_rd[k] == -2)
                 copy_row(a, q, v, p2, q + a.L.at(2 + k, 0),
                          v + a.L.at(2 + k, 0));
+    }
+    if (closing) {
+        __syncthreads();  // every read of arr_rd above is done
+        for (int k = tid; k < a.D; k += blockDim.x) arr_rd[k] = arr_wr[k];
     }
 }
 
@@ -248,9 +273,10 @@ __device__ __forceinline__ int graded_source_row(const GradedArgs<T>& a,
             && a.arr[t & 1][b - 2] == -2) ? 1 : b;
 }
 
-inline bool graded_args_ok(int mode, int B, int n, int D, int s0, int s1) {
+inline bool graded_args_ok(int mode, int B, int n, int D, const int* s0,
+                           int K) {
     return mode >= MODE_P12 && mode <= MODE_P123 && B >= 1 && B <= 65535
-           && n >= 1 && D >= 0 && s0 >= 0 && s1 > s0;
+           && n >= 1 && D >= 0 && s0 != nullptr && K >= 1;
 }
 
 // A mesh rank's chunk (P12 or P3; the mesh has no fused driver): n rows
@@ -267,14 +293,14 @@ inline bool graded_rows_ok(int mode, int B, int n, int p1, int p2, int ni,
 // Make the arguments `a` of a one-device chunk those of a mesh rank's
 // launch: the roles, the layout (each block holds its q rows and then its
 // v rows: 2 * B * ni * 3 elements), and the rows from r0, a block's first
-// row, at step t (a step from 1, the closing checks from 0); false if
-// refused.
+// row, at offset `off` in the chunk (a step from 1, the closing checks from
+// 0); false if refused.
 template <typename T>
 bool graded_rows_args(GradedArgs<T>& a, int p1, int p2, int ni, int k,
-                      int r0, int t, bool step) {
-    if (!graded_args_ok(a.mode, a.B, a.n, a.D, 0, 1)
+                      int r0, int off, bool step) {
+    if (!graded_args_ok(a.mode, a.B, a.n, a.D, a.s0, 1)
         || !graded_rows_ok(a.mode, a.B, a.n, p1, p2, ni, k) || r0 < 0
-        || r0 % ni != 0 || r0 / ni >= k || t < (step ? 1 : 0))
+        || r0 % ni != 0 || r0 / ni >= k || off < (step ? 1 : 0))
         return false;
     a.p1 = p1;
     a.p2 = p2;
@@ -283,47 +309,49 @@ bool graded_rows_args(GradedArgs<T>& a, int p1, int p2, int ni, int k,
     return true;
 }
 
-// Steps s0 + 1 .. s1 from the state in (q0, v0); the result lies in
-// (q0, v0) if s1 - s0 is even, else in (q1, v1). No host synchronisation.
-// `smem`: the step kernel's dynamic shared memory in bytes. Returns the
-// first launch error, or 0.
+// Steps s0 + 1 .. s0 + K (s0 = *a.s0, read on the card) from the state in
+// (q0, v0); the result lies in (q0, v0) if K is even, else in (q1, v1).
+// No host synchronisation, and nothing here depends on s0: a capture of
+// this loop serves every chunk of K steps. `smem`: the step kernel's
+// dynamic shared memory in bytes. Returns the first launch error, or 0.
 template <typename T, typename Step, typename Check>
 int graded_chunk(Step step, Check check, dim3 grid,
                  int threads, int check_threads, const GradedArgs<T>& a,
-                 T* q0, T* v0, T* q1, T* v1, int s0, int s1,
+                 T* q0, T* v0, T* q1, T* v1, int K,
                  cudaStream_t stream, size_t smem = 0) {
     T* q[2] = {q0, q1};
     T* v[2] = {v0, v1};
-    for (int t = s0 + 1; t <= s1; ++t) {
-        const int in = (t - s0 - 1) & 1;
+    for (int k = 1; k <= K; ++k) {
+        const int in = (k - 1) & 1;
         step<<<grid, threads, smem, stream>>>(a, q[in], v[in], q[in ^ 1],
-                                              v[in ^ 1], t, t > s0 + 1);
+                                              v[in ^ 1], k, k > 1);
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    const int last = (s1 - s0) & 1;
-    check<<<1, check_threads, 0, stream>>>(a, q[last], v[last], s1);
+    const int last = K & 1;
+    check<<<1, check_threads, 0, stream>>>(a, q[last], v[last], K);
     return static_cast<int>(cudaGetLastError());
 }
 
-// A mesh rank's launch of step t from the state (q, v) into (q_out, v_out),
-// checking step t - 1 first if `check`; with q_out null, the checks of step
-// t on (q, v) alone (a chunk's closing launch). The host gathers the
-// ranks' rows between two launches. Returns the launch error, or 0.
+// A mesh rank's launch of the step at offset `off` in its chunk from the
+// state (q, v) into (q_out, v_out), checking the step before first if
+// `check`; with q_out null, the checks of that step on (q, v) alone (a
+// chunk's closing launch). The host gathers the ranks' rows between two
+// launches. Returns the launch error, or 0.
 template <typename T, typename Step, typename Check>
 int graded_rows_launch(Step step, Check check, int rows_a_block,
                        int threads, int check_threads,
                        const GradedArgs<T>& a, T* q, T* v, T* q_out,
-                       T* v_out, int t, int check_prev, cudaStream_t stream,
-                       size_t smem = 0) {
+                       T* v_out, int off, int check_prev,
+                       cudaStream_t stream, size_t smem = 0) {
     if (q_out == nullptr) {
-        check<<<1, check_threads, 0, stream>>>(a, q, v, t);
+        check<<<1, check_threads, 0, stream>>>(a, q, v, off);
     } else {
         // a rank without rows (r0 past n) still makes the checks
         const int rows = std::min(a.r0 + a.L.ni, a.n) - a.r0;
         const dim3 grid(
             std::max(1, (rows + rows_a_block - 1) / rows_a_block), a.B);
-        step<<<grid, threads, smem, stream>>>(a, q, v, q_out, v_out, t,
+        step<<<grid, threads, smem, stream>>>(a, q, v, q_out, v_out, off,
                                               check_prev);
     }
     return static_cast<int>(cudaGetLastError());

@@ -94,9 +94,10 @@ template <class Geo, bool Blocked>
 __global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
 graded_step_dd_kernel(GradedArgs<dd> a, const dd* __restrict__ q_in,
                       const dd* __restrict__ v_in, dd* __restrict__ q_out,
-                      dd* __restrict__ v_out, int t, int check) {
+                      dd* __restrict__ v_out, int off, int check) {
     extern __shared__ __align__(16) unsigned char smem[];
     auto& sm = *reinterpret_cast<typename Geo::Smem*>(smem);
+    const int t = nbody::graded_step_at(a, off);
     const int b = blockIdx.y, i0 = a.r0 + blockIdx.x * Geo::R, n = a.n;
     const int live = min(Geo::R, nbody::graded_end(a) - i0);
     if (check && blockIdx.x == 0 && b == 0)
@@ -133,8 +134,8 @@ graded_step_dd_kernel(GradedArgs<dd> a, const dd* __restrict__ q_in,
 }
 
 __global__ void __launch_bounds__(CHECK_THREADS)
-graded_check_dd_kernel(GradedArgs<dd> a, dd* q, dd* v, int p) {
-    nbody::graded_check(a, q, v, p, true);
+graded_check_dd_kernel(GradedArgs<dd> a, dd* q, dd* v, int off) {
+    nbody::graded_check(a, q, v, nbody::graded_step_at(a, off), true);
 }
 
 using StepKernel = void (*)(GradedArgs<dd>, const dd*, const dd*, dd*, dd*,
@@ -150,10 +151,10 @@ cudaError_t step_kernel(StepKernel* kernel, size_t* smem) {
                                 static_cast<int>(*smem));
 }
 
-// Steps s0 + 1 .. s1 in geometry Geo (graded.cuh graded_chunk)
+// Steps s0 + 1 .. s0 + K in geometry Geo (graded.cuh graded_chunk)
 template <class Geo>
-int chunk_dd(const GradedArgs<dd>& a, dd* q, dd* v, dd* q2, dd* v2, int s0,
-             int s1, cudaStream_t stream) {
+int chunk_dd(const GradedArgs<dd>& a, dd* q, dd* v, dd* q2, dd* v2, int K,
+             cudaStream_t stream) {
     StepKernel kernel;
     size_t smem;
     const cudaError_t err = step_kernel<Geo>(&kernel, &smem);
@@ -161,13 +162,13 @@ int chunk_dd(const GradedArgs<dd>& a, dd* q, dd* v, dd* q2, dd* v2, int s0,
     const dim3 grid((a.n + Geo::R - 1) / Geo::R, a.B);
     return nbody::graded_chunk(kernel, graded_check_dd_kernel, grid,
                                Geo::THREADS, CHECK_THREADS, a, q, v, q2, v2,
-                               s0, s1, stream, smem);
+                               K, stream, smem);
 }
 
 // One launch of a mesh rank in geometry Geo (graded.cuh
 // graded_rows_launch); several blocks or one (one device's instantiation)
 template <class Geo, bool Blocked>
-int rows_dd(const GradedArgs<dd>& a, dd* qv, dd* qv_out, int t, int check,
+int rows_dd(const GradedArgs<dd>& a, dd* qv, dd* qv_out, int off, int check,
             void* stream) {
     StepKernel kernel;
     size_t smem;
@@ -176,8 +177,8 @@ int rows_dd(const GradedArgs<dd>& a, dd* qv, dd* qv_out, int t, int check,
     const long long half = a.L.stride / 2;   // a block's q rows, then v's
     return nbody::graded_rows_launch(
         kernel, graded_check_dd_kernel, Geo::R, Geo::THREADS, CHECK_THREADS,
-        a, qv, qv + half, qv_out, qv_out ? qv_out + half : nullptr, t, check,
-        static_cast<cudaStream_t>(stream), smem);
+        a, qv, qv + half, qv_out, qv_out ? qv_out + half : nullptr, off,
+        check, static_cast<cudaStream_t>(stream), smem);
 }
 
 // graded_step_dd_info in geometry Geo
@@ -204,9 +205,9 @@ int info_dd(int* out) {
 
 }  // namespace
 
-// Steps s0 + 1 .. s1 of a graded driver (mode 0 P12, 1 P3, 2 P123) from
-// the state (q, v), (B, n, 3) double-double each as pairs of doubles; the
-// result lies in (q, v) if s1 - s0 is even, else in (q2, v2). The real
+// Steps s0 + 1 .. s0 + K of a graded driver (mode 0 P12, 1 P3, 2 P123)
+// from the state (q, v), (B, n, 3) double-double each as pairs of doubles;
+// the result lies in (q, v) if K is even, else in (q2, v2). The real
 // tables and carries are double-double too; G, dt, eps2 and r2 come as
 // (hi, lo). Otherwise as graded_chunk_f64_launch.
 extern "C" int graded_chunk_dd_launch(
@@ -216,9 +217,9 @@ extern "C" int graded_chunk_dd_launch(
         long long* hit, unsigned char* flag, double* min_d2, double* q_snap,
         double* v_snap, int mode, int B, int n, int D, int planet,
         double G_hi, double G_lo, double dt_hi, double dt_lo, double eps2_hi,
-        double eps2_lo, double r2_hi, double r2_lo, int s0, int s1,
+        double eps2_lo, double r2_hi, double r2_lo, const int* s0, int K,
         void* stream) {
-    if (!nbody::graded_args_ok(mode, B, n, D, s0, s1))
+    if (!nbody::graded_args_ok(mode, B, n, D, s0, K))
         return static_cast<int>(cudaErrorInvalidValue);
     auto d = [](double* p) { return reinterpret_cast<dd*>(p); };
     auto cd = [](const double* p) { return reinterpret_cast<const dd*>(p); };
@@ -226,11 +227,11 @@ extern "C" int graded_chunk_dd_launch(
         cd(m0), cd(mh), cd(fst), cd(md2), others, arr, arr2, hit, flag,
         d(min_d2), d(q_snap), d(v_snap), mode, B, n, D, planet,
         dd{G_hi, G_lo}, dd{dt_hi, dt_lo}, dd{eps2_hi, eps2_lo},
-        dd{r2_hi, r2_lo});
+        dd{r2_hi, r2_lo}, s0);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     return n <= NARROW_MAX_N
-               ? chunk_dd<Narrow>(a, d(q), d(v), d(q2), d(v2), s0, s1, s)
-               : chunk_dd<Wide>(a, d(q), d(v), d(q2), d(v2), s0, s1, s);
+               ? chunk_dd<Narrow>(a, d(q), d(v), d(q2), d(v2), K, s)
+               : chunk_dd<Wide>(a, d(q), d(v), d(q2), d(v2), K, s);
 }
 
 // One launch of a mesh rank in double-double: graded_rows_f64_step's
@@ -244,23 +245,24 @@ extern "C" int graded_rows_dd_step(
         int planet, int p1, int p2, int ni, int k, double G_hi, double G_lo,
         double dt_hi, double dt_lo, double eps2_hi, double eps2_lo,
         double r2_hi, double r2_lo, double* qv, double* qv_out, int r0,
-        int t, int check, void* stream) {
+        const int* s0, int off, int check, void* stream) {
     auto d = [](double* p) { return reinterpret_cast<dd*>(p); };
     auto cd = [](const double* p) { return reinterpret_cast<const dd*>(p); };
     GradedArgs<dd> a = nbody::graded_args(
         cd(m0), cd(mh), cd(fst), cd(md2), others, arr, arr2, hit, flag,
         d(min_d2), d(q_snap), d(v_snap), mode, B, n, D, planet,
         dd{G_hi, G_lo}, dd{dt_hi, dt_lo}, dd{eps2_hi, eps2_lo},
-        dd{r2_hi, r2_lo});
-    if (!nbody::graded_rows_args(a, p1, p2, ni, k, r0, t, qv_out != nullptr))
+        dd{r2_hi, r2_lo}, s0);
+    if (!nbody::graded_rows_args(a, p1, p2, ni, k, r0, off,
+                                 qv_out != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     dd* in = d(qv);
     dd* out = d(qv_out);
     if (n <= NARROW_MAX_N)
-        return k > 1 ? rows_dd<Narrow, true>(a, in, out, t, check, stream)
-                     : rows_dd<Narrow, false>(a, in, out, t, check, stream);
-    return k > 1 ? rows_dd<Wide, true>(a, in, out, t, check, stream)
-                 : rows_dd<Wide, false>(a, in, out, t, check, stream);
+        return k > 1 ? rows_dd<Narrow, true>(a, in, out, off, check, stream)
+                     : rows_dd<Narrow, false>(a, in, out, off, check, stream);
+    return k > 1 ? rows_dd<Wide, true>(a, in, out, off, check, stream)
+                 : rows_dd<Wide, false>(a, in, out, off, check, stream);
 }
 
 // What the card says about the step kernel as it runs at n bodies, into

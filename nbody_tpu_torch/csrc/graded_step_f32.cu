@@ -71,7 +71,7 @@ __global__ void __launch_bounds__(THREADS)
 graded_step_f32_kernel(GradedArgs<float> a, const float* __restrict__ q_in,
                        const float* __restrict__ v_in,
                        float* __restrict__ q_out, float* __restrict__ v_out,
-                       int t, int check) {
+                       int off, int check) {
     __shared__ float s_term[3][RB][TW][TJ + 1];  // +1: no bank conflicts
     __shared__ float s_part[3][RB][TW];
     __shared__ float s_qi[3][RB];
@@ -81,6 +81,7 @@ graded_step_f32_kernel(GradedArgs<float> a, const float* __restrict__ q_in,
     __shared__ int s_first[2][TW], s_len[2][TW];
     __shared__ bool s_ends[2][TW];
 
+    const int t = nbody::graded_step_at(a, off);
     const int b = blockIdx.y, i0 = a.r0 + blockIdx.x * RB, tid = threadIdx.x;
     const int n = a.n, live = min(RB, nbody::graded_end(a) - i0);
     if (check && blockIdx.x == 0 && b == 0)
@@ -185,13 +186,13 @@ graded_step_f32_kernel(GradedArgs<float> a, const float* __restrict__ q_in,
 }
 
 __global__ void __launch_bounds__(CHECK_THREADS)
-graded_check_f32_kernel(GradedArgs<float> a, float* q, float* v, int p) {
-    nbody::graded_check(a, q, v, p, true);
+graded_check_f32_kernel(GradedArgs<float> a, float* q, float* v, int off) {
+    nbody::graded_check(a, q, v, nbody::graded_step_at(a, off), true);
 }
 
 }  // namespace
 
-// Steps s0 + 1 .. s1 of a graded driver in float32; the arguments are
+// Steps s0 + 1 .. s0 + K of a graded driver in float32; the arguments are
 // graded_chunk_f64_launch's (graded_step_f64.cu), eps2 = fl32(eps^2) and
 // G, dt rounded to float32.
 extern "C" int graded_chunk_f32_launch(
@@ -200,17 +201,18 @@ extern "C" int graded_chunk_f32_launch(
         const long long* others, long long* arr, long long* arr2,
         long long* hit, unsigned char* flag, float* min_d2, float* q_snap,
         float* v_snap, int mode, int B, int n, int D, int planet, float G,
-        float dt, float eps2, float r2, int s0, int s1, void* stream) {
-    if (!nbody::graded_args_ok(mode, B, n, D, s0, s1))
+        float dt, float eps2, float r2, const int* s0, int K,
+        void* stream) {
+    if (!nbody::graded_args_ok(mode, B, n, D, s0, K))
         return static_cast<int>(cudaErrorInvalidValue);
     const GradedArgs<float> a = nbody::graded_args(
         m0, mh, fst, md2, others, arr, arr2, hit, flag, min_d2, q_snap,
-        v_snap, mode, B, n, D, planet, G, dt, eps2, r2);
+        v_snap, mode, B, n, D, planet, G, dt, eps2, r2, s0);
     const dim3 grid((n + RB - 1) / RB, B);
     return nbody::graded_chunk(
         graded_step_f32_kernel<false, nbody::B2Tiles>,
         graded_check_f32_kernel, grid, THREADS, CHECK_THREADS, a, q, v, q2,
-        v2, s0, s1, static_cast<cudaStream_t>(stream));
+        v2, K, static_cast<cudaStream_t>(stream));
 }
 
 // One launch of a mesh rank (graded.cuh graded_rows_launch), as
@@ -225,13 +227,13 @@ extern "C" int graded_rows_f32_step(
         long long* hit, unsigned char* flag, float* min_d2, float* q_snap,
         float* v_snap, int mode, int B, int n, int D, int planet, int p1,
         int p2, int ni, int k, int tile, float G, float dt, float eps2,
-        float r2, float* qv, float* qv_out, int r0, int t, int check,
-        void* stream) {
+        float r2, float* qv, float* qv_out, int r0, const int* s0, int off,
+        int check, void* stream) {
     GradedArgs<float> a = nbody::graded_args(
         m0, mh, fst, md2, others, arr, arr2, hit, flag, min_d2, q_snap,
-        v_snap, mode, B, n, D, planet, G, dt, eps2, r2);
+        v_snap, mode, B, n, D, planet, G, dt, eps2, r2, s0);
     if (tile < 1
-        || !nbody::graded_rows_args(a, p1, p2, ni, k, r0, t,
+        || !nbody::graded_rows_args(a, p1, p2, ni, k, r0, off,
                                     qv_out != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     a.tile = tile < n ? tile : n;
@@ -248,6 +250,6 @@ extern "C" int graded_rows_f32_step(
     return nbody::graded_rows_launch(
         step,
         graded_check_f32_kernel, RB, THREADS, CHECK_THREADS, a, qv,
-        qv + half, qv_out, qv_out ? qv_out + half : nullptr, t, check,
+        qv + half, qv_out, qv_out ? qv_out + half : nullptr, off, check,
         static_cast<cudaStream_t>(stream));
 }

@@ -89,9 +89,10 @@ __global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
 graded_step_f64_kernel(GradedArgs<double> a, const double* __restrict__ q_in,
                        const double* __restrict__ v_in,
                        double* __restrict__ q_out, double* __restrict__ v_out,
-                       int t, int check) {
+                       int off, int check) {
     __shared__ Geo::Smem sm;
 
+    const int t = nbody::graded_step_at(a, off);
     const int b = blockIdx.y, i0 = a.r0 + blockIdx.x * Geo::R;
     const int n = a.n, live = min(Geo::R, nbody::graded_end(a) - i0);
     if (check && blockIdx.x == 0 && b == 0)
@@ -126,8 +127,9 @@ graded_step_f64_kernel(GradedArgs<double> a, const double* __restrict__ q_in,
 }
 
 __global__ void __launch_bounds__(CHECK_THREADS)
-graded_check_f64_kernel(GradedArgs<double> a, double* q, double* v, int p) {
-    nbody::graded_check(a, q, v, p, true);
+graded_check_f64_kernel(GradedArgs<double> a, double* q, double* v,
+                        int off) {
+    nbody::graded_check(a, q, v, nbody::graded_step_at(a, off), true);
 }
 
 // One warp folds n <= 1024 values from shared memory, reps times over, in
@@ -151,40 +153,44 @@ fold_floor_f64_kernel(const double* __restrict__ x, double* __restrict__ out,
 
 }  // namespace
 
-// Steps s0 + 1 .. s1 of a graded driver (mode 0 P12, 1 P3, 2 P123) from
-// the state (q, v), (B, n, 3) each; the result lies in (q, v) if s1 - s0 is
-// even, else in (q2, v2). arr2 is the second arrival buffer (see
-// graded.cuh), equal to arr on entry. Pointers a mode does not use may be
-// null. dist3: 1 dsqrt, 2 sqrt3 (native/core.cc's numbers). Returns the
-// first launch error, or cudaErrorInvalidValue without launching.
+// Steps s0 + 1 .. s0 + K of a graded driver (mode 0 P12, 1 P3, 2 P123)
+// from the state (q, v), (B, n, 3) each, s0 read on the card from the
+// device word `s0` (graded.cuh: a CUDA graph of this call serves every
+// chunk of K steps); the result lies in (q, v) if K is even, else in (q2,
+// v2). arr2 is the second arrival buffer (see graded.cuh), equal to arr on
+// entry; the arrivals of step s0 + K lie in both on return. Pointers a
+// mode does not use may be null. dist3: 1 dsqrt, 2 sqrt3 (native/core.cc's
+// numbers). Returns the first launch error, or cudaErrorInvalidValue
+// without launching.
 extern "C" int graded_chunk_f64_launch(
         double* q, double* v, double* q2, double* v2, const double* m0,
         const double* mh, const double* fst, const double* md2,
         const long long* others, long long* arr, long long* arr2,
         long long* hit, unsigned char* flag, double* min_d2, double* q_snap,
         double* v_snap, int mode, int B, int n, int D, int planet, int dist3,
-        double G, double dt, double eps2, double r2, int s0, int s1,
+        double G, double dt, double eps2, double r2, const int* s0, int K,
         void* stream) {
-    if (!nbody::graded_args_ok(mode, B, n, D, s0, s1)
+    if (!nbody::graded_args_ok(mode, B, n, D, s0, K)
         || (dist3 != nbody::DIST3_DSQRT && dist3 != nbody::DIST3_SQRT3))
         return static_cast<int>(cudaErrorInvalidValue);
     const GradedArgs<double> a = nbody::graded_args(
         m0, mh, fst, md2, others, arr, arr2, hit, flag, min_d2, q_snap,
-        v_snap, mode, B, n, D, planet, G, dt, eps2, r2);
+        v_snap, mode, B, n, D, planet, G, dt, eps2, r2, s0);
     const dim3 grid((n + Geo::R - 1) / Geo::R, B);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dist3 == nbody::DIST3_DSQRT)
         return nbody::graded_chunk(
             graded_step_f64_kernel<nbody::DIST3_DSQRT, false>,
             graded_check_f64_kernel, grid, Geo::THREADS, CHECK_THREADS, a,
-            q, v, q2, v2, s0, s1, s);
+            q, v, q2, v2, K, s);
     return nbody::graded_chunk(
         graded_step_f64_kernel<nbody::DIST3_SQRT3, false>,
         graded_check_f64_kernel, grid, Geo::THREADS, CHECK_THREADS, a, q, v,
-        q2, v2, s0, s1, s);
+        q2, v2, K, s);
 }
 
-// One launch of a mesh rank (graded.cuh graded_rows_launch): step t of
+// One launch of a mesh rank (graded.cuh graded_rows_launch): step t =
+// *s0 + off (s0 a device word, as graded_chunk_f64_launch reads it) of
 // the rows [r0, r0 + ni) of the state qv, kept in k blocks of ni =
 // ceil(n / k) rows, block r holding q then v of its rows in every
 // scenario row, (k, 2, B, ni, 3); the launch reads all of qv and writes
@@ -201,12 +207,12 @@ extern "C" int graded_rows_f64_step(
         double* q_snap, double* v_snap, int mode, int B, int n, int D,
         int planet, int p1, int p2, int ni, int k, int dist3, double G,
         double dt, double eps2, double r2, double* qv, double* qv_out,
-        int r0, int t, int check, void* stream) {
+        int r0, const int* s0, int off, int check, void* stream) {
     GradedArgs<double> a = nbody::graded_args(
         m0, mh, fst, md2, others, arr, arr2, hit, flag, min_d2, q_snap,
-        v_snap, mode, B, n, D, planet, G, dt, eps2, r2);
+        v_snap, mode, B, n, D, planet, G, dt, eps2, r2, s0);
     if ((dist3 != nbody::DIST3_DSQRT && dist3 != nbody::DIST3_SQRT3)
-        || !nbody::graded_rows_args(a, p1, p2, ni, k, r0, t,
+        || !nbody::graded_rows_args(a, p1, p2, ni, k, r0, off,
                                     qv_out != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     const long long half = a.L.stride / 2;   // a block's q rows, then v's
@@ -221,7 +227,7 @@ extern "C" int graded_rows_f64_step(
     return nbody::graded_rows_launch(
         step, graded_check_f64_kernel, Geo::R, Geo::THREADS, CHECK_THREADS,
         a, qv,
-        qv + half, qv_out, qv_out ? qv_out + half : nullptr, t, check,
+        qv + half, qv_out, qv_out ? qv_out + half : nullptr, off, check,
         static_cast<cudaStream_t>(stream));
 }
 

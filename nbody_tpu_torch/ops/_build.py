@@ -191,7 +191,8 @@ def load() -> ctypes.CDLL:
         ctypes.c_void_p,                                     # cudaStream_t
     ]
     # graded_chunk_*_launch: the ints after (mode, B, n, D, planet), then
-    # G, dt, eps2, r2 (each as (hi, lo) for double-double)
+    # G, dt, eps2, r2 (each as (hi, lo) for double-double); the device
+    # word of the base step s0 and the chunk's K steps
     for name, ints, real, reals in (
             ("graded_chunk_f64_launch", 1, ctypes.c_double, 4),   # dist3
             ("graded_chunk_f32_launch", 0, ctypes.c_float, 4),
@@ -204,13 +205,14 @@ def load() -> ctypes.CDLL:
             #                            min_d2, q_snap, v_snap
             *[ctypes.c_int] * (5 + ints),
             *[real] * reals,
-            ctypes.c_int, ctypes.c_int,                      # s0, s1
+            ctypes.c_void_p, ctypes.c_int,                   # s0, K
             ctypes.c_void_p,                                 # cudaStream_t
         ]
     # graded_rows_*_step: the chunk's pointers from m0 to v_snap; (mode, B,
     # n, D, planet, p1, p2, ni, k), dist3 in binary64 or the tile in
-    # float32, the reals as above; then the launch's qv, qv_out, r0, t,
-    # check and stream
+    # float32, the reals as above; then the launch's qv, qv_out, r0, the
+    # base step's device word, the step's offset in the chunk, check and
+    # stream
     for name, ints, real, reals in (
             ("graded_rows_f64_step", 1, ctypes.c_double, 4),
             ("graded_rows_f32_step", 1, ctypes.c_float, 4),
@@ -222,7 +224,8 @@ def load() -> ctypes.CDLL:
             *[ctypes.c_int] * (9 + ints),
             *[real] * reals,
             ctypes.c_void_p, ctypes.c_void_p,                # qv, qv_out
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,        # r0, t, check
+            ctypes.c_int, ctypes.c_void_p,                   # r0, s0
+            ctypes.c_int, ctypes.c_int,                      # off, check
             ctypes.c_void_p,                                 # cudaStream_t
         ]
     lib.graded_step_dd_info.restype = ctypes.c_int

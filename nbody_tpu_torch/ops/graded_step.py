@@ -11,10 +11,15 @@ double-double (precision 'tf3': float64 tensors with a trailing axis of 2,
 (hi, lo), ops/ddfloat). On a CUDA tensor `graded_chunk` runs the graded
 step kernel of that representation (csrc/graded_step_f64.cu, whose force is
 kernel B1's in the carry's dist3 form; csrc/graded_step_f32.cu, kernel
-B2's; csrc/graded_step_dd.cu, kernel B4's): one C call, one launch per step
-and one closing check launch, no host synchronisation. The wrappers
-`graded_step_f64`, `graded_step_f32` and `graded_step_dd` count those
-launches. Only a tensor that lies on the CPU goes to the plain version,
+B2's; csrc/graded_step_dd.cu, kernel B4's): one launch per step and one
+closing check launch, no host synchronisation, as one replay of a CUDA
+graph. The graph is captured from one C call of the chunk's launches at
+the first chunk of its shape and replayed for every chunk of that shape
+(`ChunkGraphs`): the kernels read the chunk's base step from a device word
+that the host writes before each replay. The wrappers `graded_step_f64`,
+`graded_step_f32` and `graded_step_dd` count the launches a replay makes,
+and `GRAPHS` the replays and captures. Only a tensor that lies on the CPU
+goes to the plain version,
 the per-step PyTorch loop `_p12_chunk_ref`, `_p3_chunk_ref` or
 `_p123_chunk_ref`, whose force is `ops/integrate`'s (kernels B1, B2 and B4
 on a card, their plain versions on the CPU). Both compute the same bits:
@@ -32,7 +37,9 @@ state lies in the `Blocks` layout that the all_gather makes, (k, 2, B, ni,
 scenario row (`to_blocks`, `from_blocks`). On a CUDA tensor each step is
 one C call that launches the graded step kernel on the rank's rows (the
 one-device kernel, of which one device is the case k = 1) and one call of
-`gather`; a chunk ends with one check launch. On the CPU the plain
+`gather`; a chunk ends with one check launch. That loop, the in-place NCCL
+all_gathers with it, is captured into a CUDA graph once and replayed for
+every chunk of its shape, as on one device. On the CPU the plain
 version makes the same step in the same order: the rows' force through the
 cross form of kernel B1 or B4 (float32: B2's cross form in the mesh's
 ordered sum at `tile`, ops/accel_f32.accel_f32_ordered, bitwise the
@@ -49,6 +56,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
+from typing import Callable
 
 import torch
 
@@ -74,7 +83,9 @@ class Carry:
     (hi, lo) for double-double), and the binary64 force's dist3 form.
     A double-double carry's real tensors have a trailing axis of 2.
     For `graded_rows_chunk`, q holds the state in blocks (`to_blocks`) and
-    v is None."""
+    v is None. `graphs`: the carry's captured chunks on a card, made at its
+    first chunk there (`ChunkGraphs`); the chunks keep q, v, arr and every
+    other tensor where they are."""
     q: torch.Tensor             # (B, n, 3) float64 or float32
     v: torch.Tensor | None      # (B, n, 3)
     m0: torch.Tensor            # (B, n) base masses
@@ -94,6 +105,8 @@ class Carry:
     q_snap: torch.Tensor | None = None  # (D, n, 3) P2 at each arrival, P12
     v_snap: torch.Tensor | None = None
     dist3: str = "dsqrt"                # float64: 'dsqrt' or 'sqrt3'
+    graphs: ChunkGraphs | None = dataclasses.field(default=None, repr=False,
+                                                   compare=False)
 
 
 def is_dd(x: torch.Tensor) -> bool:
@@ -352,46 +365,172 @@ def _check(mode: int, c: Carry, s0: int, s1: int,
                          f"got {c.dist3!r}")
 
 
+@dataclasses.dataclass
+class GraphCounts:
+    """The graded chunks' CUDA graphs in this process (`--stats` prints
+    them): replays, one a chunk; captures, one a chunk shape and set of
+    buffers; and the host seconds the captures took, their buffers'
+    allocation included."""
+    replays: int = 0
+    captures: int = 0
+    capture_s: float = 0.0
+
+
+GRAPHS = GraphCounts()
+
+
+def capture_graph(body: Callable[[], None]) -> Callable[[], None]:
+    """Capture body(), one chunk's launches, into a CUDA graph on the
+    stream that torch.cuda.graph makes current, and return its replay. A
+    capture that fails raises: nothing goes back to the launches one by
+    one."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    return graph.replay
+
+
+def _set_word(word: torch.Tensor, s0: int) -> None:
+    """Write the base step s0 into a chunk's device word, ordered on the
+    current stream before the replay: a copy from a fresh pinned host
+    tensor (torch's host allocator does not hand its memory out again
+    before the copy has run)."""
+    if word.is_cuda:
+        word.copy_(torch.full((1,), s0, dtype=torch.int32, pin_memory=True),
+                   non_blocking=True)
+    else:
+        word.fill_(s0)
+
+
+class ChunkGraphs:
+    """A carry's captured chunks: one CUDA graph a chunk shape, replayed
+    for every chunk of that shape.
+
+    A graph bakes its kernels' arguments, so every buffer it touches keeps
+    its address for the graph's life: the carry's tensors and the entry's
+    own buffers (the second of the state's ping-pong pair, the second
+    arrival buffer and the word of the chunk's base step), which the entry
+    holds. The kernels read the base step from that word (csrc/graded.cuh),
+    which `run` writes before each replay, so one graph serves every chunk
+    of its K steps wherever it starts. `key` is all that decides the
+    captured work (driver, representation, shape, K, the force's dist3 or
+    tile, the layout, the constants and every buffer's address): a chunk
+    whose key differs captures anew. Plain Python: `capture(body) ->
+    replay` is `capture_graph` on a card and a stand-in in the CPU
+    tests."""
+
+    def __init__(self, capture: Callable = capture_graph):
+        self.capture = capture
+        self.entries: dict = {}
+
+    def run(self, key: tuple, build: Callable, device: torch.device,
+            s0: int) -> None:
+        """Replay the graph of `key` for the chunk from step s0, first
+        capturing build(word)(), the chunk's launches reading their base
+        step from `word`, if there is none."""
+        entry = self.entries.get(key)
+        if entry is None:
+            t = time.perf_counter()
+            word = torch.zeros(1, dtype=torch.int32, device=device)
+            body = build(word)
+            entry = self.entries[key] = (self.capture(body), word, body)
+            GRAPHS.captures += 1
+            GRAPHS.capture_s += time.perf_counter() - t
+        replay, word, _ = entry
+        _set_word(word, s0)
+        replay()
+        GRAPHS.replays += 1
+
+
+def _graphs(c: Carry) -> ChunkGraphs:
+    if c.graphs is None:
+        c.graphs = ChunkGraphs()
+    return c.graphs
+
+
+def _ptr(x: torch.Tensor | None) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
+def _stream(x: torch.Tensor) -> int | None:
+    """The current stream of x's card (the capture's, inside a capture)."""
+    return torch.cuda.current_stream().cuda_stream if x.is_cuda else None
+
+
+def _constants(c: Carry) -> tuple:
+    """The C call's constants after its ints: G, dt, eps2, r2 in the
+    state's representation (double-double as (hi, lo) pairs)."""
+    if is_dd(c.q):
+        return (c.G, 0.0, c.dt, 0.0, *eps2_dd(c.eps), *c.r2)
+    if c.q.dtype == torch.float32:
+        return (scalar(c.G, c.q.dtype), scalar(c.dt, c.q.dtype),
+                eps2_f32(c.eps), c.r2)
+    return (c.G, c.dt, c.eps * c.eps, c.r2)
+
+
+def _key(kind: str, mode: int, c: Carry, K: int, extra: tuple,
+         tensors: tuple) -> tuple:
+    """A graph's key: what decides its captured work."""
+    return (kind, mode, c.q.dtype, is_dd(c.q), tuple(c.q.shape), K,
+            c.others.shape[0] - 1, c.planet, extra, _constants(c),
+            c.q.device, tuple(_ptr(x) for x in tensors))
+
+
 def _launch(fn, mode: int, c: Carry, s0: int, s1: int) -> None:
-    """One C call: s1 - s0 step launches and one check launch."""
+    """Steps s0+1..s1 on the card as one replay of the carry's graph of
+    K = s1 - s0 steps."""
     if c.q.device.type != "cuda":
         raise ValueError(f"{fn.__name__} runs on cuda, not {c.q.device}")
     from . import _build
 
-    lib = _build.load()
-    q2, v2 = torch.empty_like(c.q), torch.empty_like(c.v)
-    arr2 = c.arr if mode == P3 else c.arr.clone()
-    flag = c.hit if mode == P3 else c.p3_hit
-    if is_dd(c.q):
-        launch = lib.graded_chunk_dd_launch
-        ints = ()
-        reals = (c.G, 0.0, c.dt, 0.0, *eps2_dd(c.eps), *c.r2)
-    elif c.q.dtype == torch.float32:
-        launch = lib.graded_chunk_f32_launch
-        ints = ()
-        reals = (scalar(c.G, c.q.dtype), scalar(c.dt, c.q.dtype),
-                 eps2_f32(c.eps), c.r2)
-    else:
-        launch = lib.graded_chunk_f64_launch
-        ints = (DIST3_CODES[c.dist3],)
-        reals = (c.G, c.dt, c.eps * c.eps, c.r2)
-    ptr = lambda x: None if x is None else x.data_ptr()   # noqa: E731
     with torch.cuda.device(c.q.device):
-        rc = launch(
-            ptr(c.q), ptr(c.v), ptr(q2), ptr(v2), ptr(c.m0), ptr(c.m_half),
-            ptr(c.fst), ptr(c.md2), ptr(c.others), ptr(c.arr), ptr(arr2),
-            None if mode == P3 else ptr(c.hit), ptr(flag), ptr(c.min_d2),
-            ptr(c.q_snap), ptr(c.v_snap), mode, c.q.shape[0], c.q.shape[1],
-            c.others.shape[0] - 1, c.planet, *ints, *reals, s0, s1,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
-                           f"{rc}")
-    fn.launches += s1 - s0 + 1
-    if (s1 - s0) % 2:
-        c.q, c.v = q2, v2
-    if mode != P3 and s1 % 2:    # the checks of step p write arr[p & 1]
-        c.arr = arr2
+        _replay_chunk(fn, mode, c, s0, s1, _build.load())
+
+
+def _replay_chunk(fn, mode: int, c: Carry, s0: int, s1: int, lib) -> None:
+    """The replay for steps s0+1..s1 of the graph captured from one C call
+    of `graded_chunk_*_launch` (K step launches and one check launch) and,
+    for an odd K, the copy of the result from the second buffer into (c.q,
+    c.v); the arrivals stay in c.arr (csrc/graded.cuh). `lib`: the kernel
+    library, or a stand-in in the CPU tests."""
+    K = s1 - s0
+    if is_dd(c.q):
+        launch, ints = lib.graded_chunk_dd_launch, ()
+    elif c.q.dtype == torch.float32:
+        launch, ints = lib.graded_chunk_f32_launch, ()
+    else:
+        launch, ints = lib.graded_chunk_f64_launch, (DIST3_CODES[c.dist3],)
+    q, v, arr = c.q, c.v, c.arr
+    flag = c.hit if mode == P3 else c.p3_hit
+    hit = None if mode == P3 else c.hit
+    tensors = (c.m0, c.m_half, c.fst, c.md2, c.others, arr, hit, flag,
+               c.min_d2, c.q_snap, c.v_snap)
+    reals = _constants(c)
+
+    def build(word: torch.Tensor) -> Callable[[], None]:
+        q2, v2 = torch.empty_like(q), torch.empty_like(v)
+        arr2 = arr if mode == P3 else arr.clone()   # P3's arr: read only
+        head = (_ptr(q), _ptr(v), _ptr(q2), _ptr(v2),
+                *(_ptr(x) for x in tensors[:6]), _ptr(arr2),
+                *(_ptr(x) for x in tensors[6:]), mode, q.shape[0],
+                q.shape[1], c.others.shape[0] - 1, c.planet, *ints, *reals,
+                word.data_ptr(), K)
+
+        def body() -> None:
+            if arr2 is not arr:
+                arr2.copy_(arr)       # the second arrival buffer, on entry
+            rc = launch(*head, _stream(q))
+            if rc != 0:
+                raise RuntimeError(f"{fn.__name__} kernel launch failed: "
+                                   f"CUDA error {rc}")
+            if K % 2:
+                q.copy_(q2)
+                v.copy_(v2)
+        return body
+
+    _graphs(c).run(_key("chunk", mode, c, K, ints, (q, v) + tensors),
+                   build, q.device, s0)
+    fn.launches += K + 1
 
 
 def graded_step_f64(mode: int, c: Carry, s0: int, s1: int) -> None:
@@ -512,57 +651,77 @@ def _rows_ref(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
 
 def _launch_rows(fn, mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
                  gather, roles, tile: int) -> None:
-    """A C call a step on each block of `blocks.mine` (one launch of the
-    graded step kernel on its rows), `gather` after each step, and one
-    check launch; no host synchronisation."""
+    """Steps s0+1..s1 of a mesh rank on the card as one replay of the
+    carry's graph of K = s1 - s0 steps."""
     if c.q.device.type != "cuda":
         raise ValueError(f"{fn.__name__} runs on cuda, not {c.q.device}")
     from . import _build
 
-    lib = _build.load()
-    arr2 = c.arr if mode == P3 else c.arr.clone()
-    if is_dd(c.q):
-        launch = lib.graded_rows_dd_step
-        tail = (c.G, 0.0, c.dt, 0.0, *eps2_dd(c.eps), *c.r2)
-    elif c.q.dtype == torch.float32:
-        launch = lib.graded_rows_f32_step
-        tail = (tile, scalar(c.G, c.q.dtype), scalar(c.dt, c.q.dtype),
-                eps2_f32(c.eps), c.r2)
-    else:
-        launch = lib.graded_rows_f64_step
-        tail = (DIST3_CODES[c.dist3], c.G, c.dt, c.eps * c.eps, c.r2)
-    ptr = lambda x: None if x is None else x.data_ptr()   # noqa: E731
-    p1, p2 = (-1 if r is None else r for r in roles)
-    ni = blocks.ni
-    head = (ptr(c.m0), ptr(c.m_half), ptr(c.fst), ptr(c.md2),
-            ptr(c.others), ptr(c.arr), ptr(arr2),
-            None if mode == P3 else ptr(c.hit),
-            ptr(c.hit) if mode == P3 else None, ptr(c.min_d2),
-            ptr(c.q_snap), ptr(c.v_snap), mode, c.q.shape[2], blocks.n,
-            c.others.shape[0] - 1, c.planet, p1, p2, ni, blocks.k, *tail)
-    bufs = (c.q, torch.zeros_like(c.q))
-    ptrs = [x.data_ptr() for x in bufs]
     with torch.cuda.device(c.q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        _replay_rows(fn, mode, c, s0, s1, blocks, gather, roles, tile,
+                     _build.load())
 
-        def call(src, dst, r, t, check):
-            rc = launch(*head, src, dst, r * ni, t, check, stream)
-            if rc != 0:
-                raise RuntimeError(f"{fn.__name__} kernel launch failed: "
-                                   f"CUDA error {rc}")
 
-        for t in range(s0 + 1, s1 + 1):
-            i = (t - s0 - 1) & 1
-            for r in blocks.mine:
-                call(ptrs[i], ptrs[i ^ 1], r, t, int(t > s0 + 1))
-            if gather is not None:
-                gather(bufs[i ^ 1])
-        last = (s1 - s0) & 1
-        call(ptrs[last], None, blocks.mine[0], s1, 0)
-    fn.launches += (s1 - s0) * len(blocks.mine) + 1
-    c.q = bufs[last]
-    if mode != P3 and s1 % 2:    # the checks of step p write arr[p & 1]
-        c.arr = arr2
+def _replay_rows(fn, mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
+                 gather, roles, tile: int, lib) -> None:
+    """The replay for steps s0+1..s1 of the graph captured from a C call a
+    step on each block of `blocks.mine` (one launch of the graded step
+    kernel on its rows), `gather` after each step (an in-place NCCL
+    all_gather on a card, captured with the launches), one check launch
+    and, for an odd K, the copy of the result from the second buffer into
+    c.q. `lib`: the kernel library, or a stand-in in the CPU tests."""
+    K = s1 - s0
+    if is_dd(c.q):
+        launch, ints = lib.graded_rows_dd_step, ()
+    elif c.q.dtype == torch.float32:
+        launch, ints = lib.graded_rows_f32_step, (tile,)
+    else:
+        launch, ints = lib.graded_rows_f64_step, (DIST3_CODES[c.dist3],)
+    q, arr = c.q, c.arr
+    p1, p2 = (-1 if r is None else r for r in roles)
+    ni, mine = blocks.ni, blocks.mine
+    tensors = (c.m0, c.m_half, c.fst, c.md2, c.others, arr,
+               None if mode == P3 else c.hit,
+               c.hit if mode == P3 else None, c.min_d2, c.q_snap, c.v_snap)
+
+    def build(word: torch.Tensor) -> Callable[[], None]:
+        q2 = torch.zeros_like(q)    # rows past n stay zero, as to_blocks's
+        arr2 = arr if mode == P3 else arr.clone()
+        head = (*(_ptr(x) for x in tensors[:6]), _ptr(arr2),
+                *(_ptr(x) for x in tensors[6:]), mode, q.shape[2], blocks.n,
+                c.others.shape[0] - 1, c.planet, p1, p2, ni, blocks.k,
+                *ints, *_constants(c))
+        bufs = (q, q2)
+        ptrs = [x.data_ptr() for x in bufs]
+        base = word.data_ptr()
+
+        def body() -> None:
+            if arr2 is not arr:
+                arr2.copy_(arr)
+            stream = _stream(q)
+
+            def call(src, dst, r, off, check):
+                rc = launch(*head, src, dst, r * ni, base, off, check, stream)
+                if rc != 0:
+                    raise RuntimeError(f"{fn.__name__} kernel launch "
+                                       f"failed: CUDA error {rc}")
+
+            for off in range(1, K + 1):
+                i = (off - 1) & 1
+                for r in mine:
+                    call(ptrs[i], ptrs[i ^ 1], r, off, int(off > 1))
+                if gather is not None:
+                    gather(bufs[i ^ 1])
+            last = K & 1
+            call(ptrs[last], None, mine[0], K, 0)
+            if last:
+                q.copy_(q2)
+        return body
+
+    extra = (*ints, blocks, roles, gather)
+    _graphs(c).run(_key("rows", mode, c, K, extra, (q,) + tensors), build,
+                   q.device, s0)
+    fn.launches += K * len(mine) + 1
 
 
 def graded_rows_chunk(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
@@ -581,9 +740,10 @@ def graded_rows_chunk(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
     block. roles = (P1's row, P2's row) in P12, either None where the
     carry lacks it (default: P1 is row 0, P2 row 1 if there are two rows).
     CUDA tensors run the graded step kernel of their representation on the
-    rows and add its launches to `graded_step_f64.launches`,
-    `graded_step_f32.launches` or `graded_step_dd.launches`; CPU tensors
-    run the plain version."""
+    rows, the chunk as one replay of a CUDA graph that holds the gathers
+    too (`ChunkGraphs`), and add its launches to
+    `graded_step_f64.launches`, `graded_step_f32.launches` or
+    `graded_step_dd.launches`; CPU tensors run the plain version."""
     B = c.q.shape[2] if c.q.dim() > 2 else 0
     if mode == P12 and roles is None:
         roles = (0, 1 if B == 2 else None)
@@ -622,7 +782,9 @@ def graded_rows_chunk(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
 def graded_chunk(mode: int, c: Carry, s0: int, s1: int) -> None:
     """Advance c from step s0 to s1 (0 <= s0 < s1) in driver `mode` (P12,
     P3 or P123). CUDA tensors run the graded step kernel of their
-    representation; CPU tensors run the plain chunk."""
+    representation, the chunk as one replay of a CUDA graph
+    (`ChunkGraphs`; c.q, c.v and c.arr hold the result where they lie);
+    CPU tensors run the plain chunk."""
     _check(mode, c, s0, s1)
     if c.q.device.type == "cpu":
         _REF[mode](c, s0, s1)

@@ -336,21 +336,25 @@ def test_dd_step_kernel_bitwise_at_layout_edges_on_card(cuda, edges):
 
 @pytest.mark.cuda
 def test_launchers_refuse_bad_arguments_on_card(cuda):
-    """The C entry points refuse an empty chunk, B = 0, a bad mode and
-    n = 0 with cudaErrorInvalidValue (1) before launching; the fp64 ones
-    also a dist3 form other than dsqrt (1) and sqrt3 (2)."""
+    """The C entry points refuse an empty chunk (K = 0), B = 0, a bad
+    mode, n = 0 and no base-step word with cudaErrorInvalidValue (1)
+    before launching; the fp64 ones also a dist3 form other than dsqrt (1)
+    and sqrt3 (2)."""
     lib = _build.load()
     stream = torch.cuda.current_stream().cuda_stream
+    base = torch.zeros(1, dtype=torch.int32, device=cuda)
+    word = base.data_ptr()
     for name, ints, reals in (("graded_chunk_f64_launch", (1,), 4),
                               ("graded_chunk_f32_launch", (), 4),
                               ("graded_chunk_dd_launch", (), 8)):
         fn = getattr(lib, name)
-        for mode, B, n, s0, s1 in ((0, 1, 4, 5, 5), (0, 0, 4, 0, 1),
-                                   (3, 1, 4, 0, 1), (0, 1, 0, 0, 1)):
+        for mode, B, n, s0, K in ((0, 1, 4, word, 0), (0, 0, 4, word, 1),
+                                  (3, 1, 4, word, 1), (0, 1, 0, word, 1),
+                                  (0, 1, 4, None, 1)):
             assert fn(*[None] * 16, mode, B, n, 0, 0, *ints,
-                      *[1.0] * reals, s0, s1, stream) == 1
+                      *[1.0] * reals, s0, K, stream) == 1
     assert lib.graded_chunk_f64_launch(*[None] * 16, 0, 1, 4, 0, 0, 0,
-                                       *[1.0] * 4, 0, 1, stream) == 1
+                                       *[1.0] * 4, word, 1, stream) == 1
     z = torch.zeros((1, 4, 3), dtype=torch.float64, device="cuda")
     assert lib.accel_f64_launch(z.data_ptr(), z.data_ptr(), z.data_ptr(),
                                 z.data_ptr(), 1, 4, 4, 1.0, 3, stream) == 1

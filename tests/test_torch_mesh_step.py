@@ -303,8 +303,8 @@ def test_rows_launchers_refuse_bad_blocks_and_roles_on_card(cuda,
     """cudaErrorInvalidValue (1), and no launch: ni not ceil(n / k), no
     block, the same row in both roles, a role past the rows, fewer roles
     than rows, P3 rows with roles, the fused driver (and in binary64 no
-    dist3 form); r0 not a block's first row or past the last block, or a
-    step before step 1."""
+    dist3 form); r0 not a block's first row or past the last block, a
+    step at offset 0 in its chunk, or no base-step word."""
     from nbody_tpu_torch.ops import _build
 
     lib = _build.load()
@@ -320,18 +320,20 @@ def test_rows_launchers_refuse_bad_blocks_and_roles_on_card(cuda,
             p(c.arr), p(c.arr.clone()), p(c.hit), None, p(c.min_d2),
             p(c.q_snap), p(c.v_snap))
     stream = torch.cuda.current_stream().cuda_stream
+    base = torch.zeros(1, dtype=torch.int32, device=cuda)
+    word = p(base)
 
     def step(mode=gs.P12, roles=(0, 1), ni_=ni, k_=k, dist3=1, r0=0, t=1,
-             dst=p(out)):
+             dst=p(out), s0=word):
         reals = (1.0, 0.0, 60.0, 0.0, 1e-6, 0.0, 1.0, 0.0) if dd else \
             (dist3, 1.0, 60.0, 1e-6, 1.0)
         return launch(*ptrs, mode, 2, n, 3, c.planet, *roles, ni_, k_,
-                      *reals, p(qv), dst, r0, t, 0, stream)
+                      *reals, p(qv), dst, r0, s0, t, 0, stream)
 
     bad = [{"ni_": ni + 1}, {"k_": 0}, {"roles": (0, 0)}, {"roles": (0, 2)},
            {"roles": (-1, -1)}, {"roles": (0, -1)}, {"mode": gs.P3},
            {"mode": gs.P123}, {"r0": 1}, {"r0": 3 * ni}, {"r0": -ni},
-           {"t": 0}]
+           {"t": 0}, {"s0": None}]
     if not dd:
         bad.append({"dist3": 0})
     for kw in bad:
