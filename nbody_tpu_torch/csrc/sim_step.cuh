@@ -26,16 +26,23 @@
 // (SimSlot): q, v, a, qc, vc as the host sees them after a step, then what
 // the next step's force reads: the leapfrog's drifted positions p, its
 // half-kicked velocities vh and their compensations, and gm of the step
-// (n values). A chunk is a launch of sim_pre_kernel, which forms those from
-// the state for the chunk's first step, then one launch of the step kernel
-// a step over a ping-pong pair of buffers: launch t reads buffer in and
-// writes buffer out, so no block reads what another writes, and the
-// kernel boundary is the grid-wide barrier that the leapfrog's drift
-// needs. In launch t, the thread that owns a (row, component) once the
-// block force is summed updates it (sim_update) and, unless t ends the
-// chunk, forms what step t + 1 reads of it; the owner of a row's first
-// component forms its gm (sim_form_gm). Each body's per-step work is done
-// once, not once a pair.
+// (n values). A chunk of K steps from step t0 is a launch of
+// sim_pre_kernel, which forms those from the state for the chunk's first
+// step, then one launch of the step kernel a step over a ping-pong pair of
+// buffers: launch t reads buffer in and writes buffer out, so no block
+// reads what another writes, and the kernel boundary is the grid-wide
+// barrier that the leapfrog's drift needs. In launch t, the thread that
+// owns a (row, component) once the block force is summed updates it
+// (sim_update) and, unless t ends the chunk, forms what step t + 1 reads of
+// it; the owner of a row's first component forms its gm (sim_form_gm).
+// Each body's per-step work is done once, not once a pair.
+//
+// A launch takes its offset k in the chunk (1 .. K; the pre-launch 1) by
+// value and reads t0 from a device word (SimArgs t0), t = *t0 + k: the only
+// thing a step takes from its absolute number is fst[t]. So the chunk's
+// launches, captured once into a CUDA graph (ops/sim_step.py), serve every
+// chunk of K steps wherever it starts, as the graded chunk's do
+// (graded.cuh GradedArgs s0).
 
 #pragma once
 
@@ -80,7 +87,14 @@ struct SimArgs {
     T G, dt, kick, eps2;
     int r0, end;   // the mesh: this launch's rows [r0, end)
     int tile;      // the float32 mesh: the ordered sum's source groups
+    const int* t0;  // the chunk's base step, on the device
 };
+
+// The step at offset `off` in the launch's chunk
+template <typename T>
+__device__ __forceinline__ int sim_step_at(const SimArgs<T>& a, int off) {
+    return *a.t0 + off;
+}
 
 // x += d with running compensation c (ops/sim_step.comp_add): returns the
 // new x in x2 and the new compensation in c2
@@ -137,16 +151,16 @@ __device__ __forceinline__ void kick_drift(const SimArgs<T>& a, T q, T v,
     }
 }
 
-// What step t reads of element e (body e / 3), formed from the state in
-// the same buffer: gm, and the leapfrog's kick and drift
+// What the step at offset `off` reads of element e (body e / 3), formed
+// from the state in the same buffer: gm, and the leapfrog's kick and drift
 template <typename T, int integ, bool comp>
 __global__ void __launch_bounds__(256)
-sim_pre_kernel(SimArgs<T> a, T* __restrict__ st, int t) {
+sim_pre_kernel(SimArgs<T> a, T* __restrict__ st, int off) {
     const long long e = static_cast<long long>(blockIdx.x) * blockDim.x
                         + threadIdx.x;
     const long long S = a.slot;
     if (e >= 3LL * a.n) return;
-    if (e % 3 == 0) sim_form_gm(a, st, e / 3, t);
+    if (e % 3 == 0) sim_form_gm(a, st, e / 3, sim_step_at(a, off));
     if constexpr (integ == SIM_LEAPFROG) {
         const T zero{};
         kick_drift<T, comp>(a, st[SLOT_Q * S + e], st[SLOT_V * S + e],
@@ -211,48 +225,55 @@ __device__ __forceinline__ void sim_update(const SimArgs<T>& a,
     }
 }
 
-// Steps t0 + 1 .. t1 from buffer buf[0]: sim_pre_kernel, then
-// step(in, out, t, next) launches step t from buf[in] into buf[out]
-// (next: t < t1). The state ends in buf[(t1 - t0) & 1]. Returns the first
-// launch error, or 0.
+// The K steps of a chunk from buffer buf[0]: sim_pre_kernel, then
+// step(in, out, k, next) launches the step at offset k from buf[in] into
+// buf[out] (next: k < K). The state ends in buf[K & 1]. Nothing here
+// depends on the chunk's base step, which the kernels read from a.t0.
+// Returns the first launch error, or 0.
 template <typename T, int integ, bool comp>
-int sim_pre(const SimArgs<T>& a, T* st, int t, cudaStream_t s) {
+int sim_pre(const SimArgs<T>& a, T* st, int off, cudaStream_t s) {
     sim_pre_kernel<T, integ, comp>
         <<<static_cast<unsigned>((3LL * a.n + 255) / 256), 256, 0, s>>>(
-            a, st, t);
+            a, st, off);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int integ, bool comp, class Step>
-int sim_chunk(const SimArgs<T>& a, T* buf[2], int t0, int t1,
-              cudaStream_t s, Step step) {
-    cudaError_t err = static_cast<cudaError_t>(
-        sim_pre<T, integ, comp>(a, buf[0], t0 + 1, s));
-    for (int t = t0 + 1; t <= t1 && err == cudaSuccess; ++t) {
-        const int in = (t - t0 - 1) & 1;
-        step(buf[in], buf[in ^ 1], t, static_cast<int>(t < t1));
+int sim_chunk(const SimArgs<T>& a, T* buf[2], int K, cudaStream_t s,
+              Step step) {
+    cudaError_t err =
+        static_cast<cudaError_t>(sim_pre<T, integ, comp>(a, buf[0], 1, s));
+    for (int k = 1; k <= K && err == cudaSuccess; ++k) {
+        const int in = (k - 1) & 1;
+        step(buf[in], buf[in ^ 1], k, static_cast<int>(k < K));
         err = cudaGetLastError();
     }
     return static_cast<int>(err);
 }
 
-// Whether a chunk's arguments are ones the launchers take
-inline bool sim_chunk_args_ok(int n, int integrator, int t0, int t1) {
-    return n > 0 && t0 >= 0 && t1 > t0
-           && (integrator == SIM_EULER || integrator == SIM_LEAPFROG);
+// Whether a scene and integrator are ones the launchers take
+inline bool sim_args_ok(int n, int integrator) {
+    return n > 0 && (integrator == SIM_EULER || integrator == SIM_LEAPFROG);
+}
+
+// ... and a chunk of K steps from the base step in the word t0
+inline bool sim_chunk_args_ok(int n, int integrator, const int* t0, int K) {
+    return sim_args_ok(n, integrator) && t0 != nullptr && K >= 1;
 }
 
 // A mesh rank's launch (the step kernels' sim_rows_*_step): n rows in k
 // blocks of ni = ceil(n / k), this rank's from r0, a block's first row,
-// at step t >= 1 (t >= 0 for the chunk's pre-launch); sets a's slot size
-// and rows, false if refused.
+// at offset off >= 1 in its chunk (off >= 0 for the chunk's pre-launch)
+// from the base step in the word t0; sets a's slot size, rows and word,
+// false if refused.
 template <typename T>
 bool sim_rows_args(SimArgs<T>& a, int ni, int k, int r0, int integrator,
-                   int t, bool step) {
-    if (!sim_chunk_args_ok(a.n, integrator, 0, 1) || k < 1
+                   const int* t0, int off, bool step) {
+    if (!sim_chunk_args_ok(a.n, integrator, t0, 1) || k < 1
         || ni != (a.n + k - 1) / k || r0 < 0 || r0 % ni != 0
-        || r0 / ni >= k || t < (step ? 1 : 0))
+        || r0 / ni >= k || off < (step ? 1 : 0))
         return false;
+    a.t0 = t0;
     a.slot = 3LL * k * ni;
     a.r0 = r0;
     a.end = std::min(r0 + ni, a.n);

@@ -1,6 +1,8 @@
 // simulate()'s double-double step on one device (precisions 'tf3', 'ddp'
 // and 'dd+'): masses, kernel B4's force and the update, Euler or leapfrog
-// (KDK), one launch a step and one C call a chunk.
+// (KDK), one launch a step and one C call a chunk, whose launches a CUDA
+// graph replays (sim_step.cuh: each launch takes its offset in the chunk
+// and reads the chunk's base step from a device word).
 //
 // Replaces, on simulate's path beyond binary64, the JAX package's tf3
 // scan (nbody_tpu/simulate.py _chunk_scan, its tf3 branch around
@@ -42,15 +44,17 @@ using nbody::dd;
 using Geo = nbody::DdNarrow;
 using Args = nbody::SimArgs<dd>;
 
-// Step t from buffer in into buffer out; `next`: form what step t + 1
-// reads (every step but a chunk's last); Blocked: a mesh rank's rows
+// The step at offset `off` in its chunk from buffer in into buffer out;
+// `next`: form what the step after it reads (every step but a chunk's
+// last); Blocked: a mesh rank's rows
 template <int integ, bool Blocked>
 __global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
 sim_step_dd_kernel(Args a, const dd* __restrict__ in, dd* __restrict__ out,
-                   int t, int next) {
+                   int off, int next) {
     __shared__ Geo::Smem sm;
 
-    if (Blocked && next) nbody::sim_form_gm_all(a, out, t + 1);
+    if (Blocked && next)
+        nbody::sim_form_gm_all(a, out, nbody::sim_step_at(a, off) + 1);
     const long long S = a.slot;
     const int i0 = (Blocked ? a.r0 : 0) + blockIdx.x * Geo::R;
     const int live = min(Geo::R, (Blocked ? a.end : a.n) - i0);
@@ -73,53 +77,56 @@ sim_step_dd_kernel(Args a, const dd* __restrict__ in, dd* __restrict__ out,
     if (!folds) return;
     nbody::sim_update<dd, integ, false>(a, s, acc, out, e, next);
     if (!Blocked && next && x % 3 == 0)
-        nbody::sim_form_gm(a, out, i0 + x / 3, t + 1);
+        nbody::sim_form_gm(a, out, i0 + x / 3,
+                           nbody::sim_step_at(a, off) + 1);
 }
 
 template <int integ>
-int chunk(const Args& a, dd* buf[2], int t0, int t1, cudaStream_t s) {
+int chunk(const Args& a, dd* buf[2], int K, cudaStream_t s) {
     const dim3 grid((a.n + Geo::R - 1) / Geo::R);
     return nbody::sim_chunk<dd, integ, false>(
-        a, buf, t0, t1, s, [&](dd* in, dd* out, int t, int next) {
+        a, buf, K, s, [&](dd* in, dd* out, int off, int next) {
             sim_step_dd_kernel<integ, false>
-                <<<grid, Geo::THREADS, 0, s>>>(a, in, out, t, next);
+                <<<grid, Geo::THREADS, 0, s>>>(a, in, out, off, next);
         });
 }
 
-// A mesh rank's launch: step t from in into out, or with out null the
-// chunk's pre-launch on in for step t
+// A mesh rank's launch: the step at offset `off` from in into out, or
+// with out null the chunk's pre-launch on in for that step
 template <int integ>
-int rows_step(const Args& a, dd* in, dd* out, int t, int next,
+int rows_step(const Args& a, dd* in, dd* out, int off, int next,
               cudaStream_t s) {
     if (out == nullptr)
-        return nbody::sim_pre<dd, integ, false>(a, in, t, s);
+        return nbody::sim_pre<dd, integ, false>(a, in, off, s);
     sim_step_dd_kernel<integ, true>
         <<<nbody::sim_rows_grid(a, Geo::R), Geo::THREADS, 0, s>>>(
-            a, in, out, t, next);
+            a, in, out, off, next);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Steps t0 + 1 .. t1 of simulate's double-double loop on one scene of n
-// bodies, every value a pair of doubles (hi, lo). st0, st1: two buffers of
-// SIM_SLOTS * n * 3 pairs; st0 holds the state in its slots q, v (and a
-// for the leapfrog), and the state after step t1 lies in the same slots
-// of st0 if t1 - t0 is even, else of st1. m0, mh (n,) pairs; fst (t1 + 1,)
-// doubles at least; G, dt and kick = dt / 2 binary64 values (taken as
-// (x, 0)), eps2 = eps2_hi + eps2_lo. integrator: 0 Euler, 1 leapfrog. One
-// launch forms the chunk's first inputs, then one launch a step; no host
-// synchronisation. Returns the first launch error, or
+// Steps t0 + 1 .. t0 + K of simulate's double-double loop on one scene of
+// n bodies, t0 = *t0w read on the card (a device word), every value a pair
+// of doubles (hi, lo). st0, st1: two buffers of SIM_SLOTS * n * 3 pairs;
+// st0 holds the state in its slots q, v (and a for the leapfrog), and the
+// state after step t0 + K lies in the same slots of st0 if K is even, else
+// of st1. m0, mh (n,) pairs; fst (t0 + K + 1,) doubles at least; G, dt and
+// kick = dt / 2 binary64 values (taken as (x, 0)), eps2 = eps2_hi +
+// eps2_lo. integrator: 0 Euler, 1 leapfrog. One launch forms the chunk's
+// first inputs, then one launch a step; no host synchronisation, and
+// nothing the host does depends on t0 (a capture of the call serves every
+// chunk of K steps). Returns the first launch error, or
 // cudaErrorInvalidValue without launching.
 extern "C" int sim_chunk_dd_launch(double* st0, double* st1,
                                    const double* m0, const double* mh,
                                    const double* fst, int n, int integrator,
                                    double G, double dt, double kick,
-                                   double eps2_hi, double eps2_lo, int t0,
-                                   int t1, void* stream) {
-    if (!nbody::sim_chunk_args_ok(n, integrator, t0, t1))
+                                   double eps2_hi, double eps2_lo,
+                                   const int* t0w, int K, void* stream) {
+    if (!nbody::sim_chunk_args_ok(n, integrator, t0w, K))
         return static_cast<int>(cudaErrorInvalidValue);
-    const Args a{reinterpret_cast<const dd*>(m0),
+    Args a{reinterpret_cast<const dd*>(m0),
                  reinterpret_cast<const dd*>(mh),
                  fst,
                  n,
@@ -128,11 +135,12 @@ extern "C" int sim_chunk_dd_launch(double* st0, double* st1,
                  dd{dt, 0.0},
                  dd{kick, 0.0},
                  dd{eps2_hi, eps2_lo}};
+    a.t0 = t0w;
     dd* buf[2] = {reinterpret_cast<dd*>(st0), reinterpret_cast<dd*>(st1)};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     return integrator == nbody::SIM_EULER
-               ? chunk<nbody::SIM_EULER>(a, buf, t0, t1, s)
-               : chunk<nbody::SIM_LEAPFROG>(a, buf, t0, t1, s);
+               ? chunk<nbody::SIM_EULER>(a, buf, K, s)
+               : chunk<nbody::SIM_LEAPFROG>(a, buf, K, s);
 }
 
 // One launch of a mesh rank (sim_step.cuh, the row-range form), as
@@ -142,8 +150,9 @@ extern "C" int sim_rows_dd_step(double* in, double* out, const double* m0,
                                 const double* mh, const double* fst, int n,
                                 int ni, int k, int r0, int integrator,
                                 double G, double dt, double kick,
-                                double eps2_hi, double eps2_lo, int t,
-                                int next, void* stream) {
+                                double eps2_hi, double eps2_lo,
+                                const int* t0w, int off, int next,
+                                void* stream) {
     Args a{reinterpret_cast<const dd*>(m0),
            reinterpret_cast<const dd*>(mh),
            fst,
@@ -153,20 +162,21 @@ extern "C" int sim_rows_dd_step(double* in, double* out, const double* m0,
            dd{dt, 0.0},
            dd{kick, 0.0},
            dd{eps2_hi, eps2_lo}};
-    if (!nbody::sim_rows_args(a, ni, k, r0, integrator, t, out != nullptr))
+    if (!nbody::sim_rows_args(a, ni, k, r0, integrator, t0w, off,
+                              out != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     dd* i = reinterpret_cast<dd*>(in);
     dd* o = reinterpret_cast<dd*>(out);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     return integrator == nbody::SIM_EULER
-               ? rows_step<nbody::SIM_EULER>(a, i, o, t, next, s)
-               : rows_step<nbody::SIM_LEAPFROG>(a, i, o, t, next, s);
+               ? rows_step<nbody::SIM_EULER>(a, i, o, off, next, s)
+               : rows_step<nbody::SIM_LEAPFROG>(a, i, o, off, next, s);
 }
 
 // What the card says of the step kernel of this integrator (forces.cuh
 // kernel_info).
 extern "C" int sim_step_dd_info(int integrator, int* out) {
-    if (!nbody::sim_chunk_args_ok(1, integrator, 0, 1))
+    if (!nbody::sim_args_ok(1, integrator))
         return static_cast<int>(cudaErrorInvalidValue);
     return integrator == nbody::SIM_EULER
                ? nbody::kernel_info(

@@ -1,6 +1,8 @@
 // simulate()'s float32 step on one device: masses, kernel B2's force and
 // the update, Euler or leapfrog (KDK), with or without Kahan compensation,
-// one launch a step and one C call a chunk.
+// one launch a step and one C call a chunk, whose launches a CUDA graph
+// replays (sim_step.cuh: each launch takes its offset in the chunk and
+// reads the chunk's base step from a device word).
 //
 // Replaces, on simulate's float32 path, nbody_tpu/ops/pallas_forces.py
 // ::_accel_kernel together with the per-step work around it that the JAX
@@ -44,18 +46,20 @@ namespace {
 
 using Args = nbody::SimArgs<float>;
 
-// Step t from buffer in into buffer out in B2's shape Sh; `next`: form
-// what step t + 1 reads (every step but a chunk's last); Blocked: a mesh
+// The step at offset `off` in its chunk from buffer in into buffer out in
+// B2's shape Sh; `next`: form what the step after it reads (every step but
+// a chunk's last); Blocked: a mesh
 // rank's rows, in the ordered sum at a.tile over Tiles (GroupTiles, or
 // B2Tiles where that sum is B2's own: at tile 128 or a tile of all n)
 template <class Sh, int integ, bool comp, bool Blocked,
           class Tiles = nbody::B2Tiles>
 __global__ void __launch_bounds__(Sh::THREADS)
 sim_step_f32_kernel(Args a, const float* __restrict__ in,
-                    float* __restrict__ out, int t, int next) {
+                    float* __restrict__ out, int off, int next) {
     __shared__ typename Sh::Smem sm;
 
-    if (Blocked && next) nbody::sim_form_gm_all(a, out, t + 1);
+    if (Blocked && next)
+        nbody::sim_form_gm_all(a, out, nbody::sim_step_at(a, off) + 1);
     const long long S = a.slot;
     // the rows [r0, end), i0 the block's first among them
     const int r0 = Blocked ? a.r0 : 0, end = Blocked ? a.end : a.n;
@@ -84,61 +88,63 @@ sim_step_f32_kernel(Args a, const float* __restrict__ in,
                 a, nbody::sim_load<float, integ, comp>(a, in, e), acc[k],
                 out, e, next);
             if (!Blocked && next && c == 0)
-                nbody::sim_form_gm(a, out, i, t + 1);
+                nbody::sim_form_gm(a, out, i, nbody::sim_step_at(a, off) + 1);
         }
     }
 }
 
 template <class Sh, int integ, bool comp>
-int chunk(const Args& a, float* buf[2], int t0, int t1, cudaStream_t s) {
+int chunk(const Args& a, float* buf[2], int K, cudaStream_t s) {
     const dim3 grid(static_cast<unsigned>((a.n + (Sh::RB - 1LL)) / Sh::RB));
     return nbody::sim_chunk<float, integ, comp>(
-        a, buf, t0, t1, s, [&](float* in, float* out, int t, int next) {
+        a, buf, K, s, [&](float* in, float* out, int off, int next) {
             sim_step_f32_kernel<Sh, integ, comp, false>
-                <<<grid, Sh::THREADS, 0, s>>>(a, in, out, t, next);
+                <<<grid, Sh::THREADS, 0, s>>>(a, in, out, off, next);
         });
 }
 
-// A mesh rank's launch: step t from in into out, or with out null the
-// chunk's pre-launch on in for step t
+// A mesh rank's launch: the step at offset `off` from in into out, or
+// with out null the chunk's pre-launch on in for that step
 template <class Sh, int integ, bool comp>
-int rows_step(const Args& a, float* in, float* out, int t, int next,
+int rows_step(const Args& a, float* in, float* out, int off, int next,
               cudaStream_t s) {
     if (out == nullptr)
-        return nbody::sim_pre<float, integ, comp>(a, in, t, s);
+        return nbody::sim_pre<float, integ, comp>(a, in, off, s);
     const dim3 grid = nbody::sim_rows_grid(a, Sh::RB);
     if (a.tile == nbody::B2_TJ || a.tile == a.n)   // B2's own sum
         sim_step_f32_kernel<Sh, integ, comp, true, nbody::B2Tiles>
-            <<<grid, Sh::THREADS, 0, s>>>(a, in, out, t, next);
+            <<<grid, Sh::THREADS, 0, s>>>(a, in, out, off, next);
     else
         sim_step_f32_kernel<Sh, integ, comp, true, nbody::GroupTiles>
-            <<<grid, Sh::THREADS, 0, s>>>(a, in, out, t, next);
+            <<<grid, Sh::THREADS, 0, s>>>(a, in, out, off, next);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <class Sh>
 int rows_by_variant(int integ, bool comp, const Args& a, float* in,
-                    float* out, int t, int next, cudaStream_t s) {
+                    float* out, int off, int next, cudaStream_t s) {
     using nbody::SIM_EULER;
     using nbody::SIM_LEAPFROG;
     if (integ == SIM_EULER)
-        return comp ? rows_step<Sh, SIM_EULER, true>(a, in, out, t, next, s)
-                    : rows_step<Sh, SIM_EULER, false>(a, in, out, t, next,
+        return comp ? rows_step<Sh, SIM_EULER, true>(a, in, out, off, next,
+                                                     s)
+                    : rows_step<Sh, SIM_EULER, false>(a, in, out, off, next,
                                                       s);
-    return comp ? rows_step<Sh, SIM_LEAPFROG, true>(a, in, out, t, next, s)
-                : rows_step<Sh, SIM_LEAPFROG, false>(a, in, out, t, next, s);
+    return comp ? rows_step<Sh, SIM_LEAPFROG, true>(a, in, out, off, next, s)
+                : rows_step<Sh, SIM_LEAPFROG, false>(a, in, out, off, next,
+                                                     s);
 }
 
 template <class Sh>
-int by_variant(int integ, bool comp, const Args& a, float* buf[2], int t0,
-               int t1, cudaStream_t s) {
+int by_variant(int integ, bool comp, const Args& a, float* buf[2], int K,
+               cudaStream_t s) {
     using nbody::SIM_EULER;
     using nbody::SIM_LEAPFROG;
     if (integ == SIM_EULER)
-        return comp ? chunk<Sh, SIM_EULER, true>(a, buf, t0, t1, s)
-                    : chunk<Sh, SIM_EULER, false>(a, buf, t0, t1, s);
-    return comp ? chunk<Sh, SIM_LEAPFROG, true>(a, buf, t0, t1, s)
-                : chunk<Sh, SIM_LEAPFROG, false>(a, buf, t0, t1, s);
+        return comp ? chunk<Sh, SIM_EULER, true>(a, buf, K, s)
+                    : chunk<Sh, SIM_EULER, false>(a, buf, K, s);
+    return comp ? chunk<Sh, SIM_LEAPFROG, true>(a, buf, K, s)
+                : chunk<Sh, SIM_LEAPFROG, false>(a, buf, K, s);
 }
 
 template <class Sh>
@@ -156,38 +162,39 @@ int info(int integ, bool comp, int* out) {
 }
 
 bool args_ok(int n, int integrator, int compensated) {
-    return nbody::sim_chunk_args_ok(n, integrator, 0, 1)
+    return nbody::sim_args_ok(n, integrator)
            && (compensated == 0 || compensated == 1);
 }
 
 }  // namespace
 
-// Steps t0 + 1 .. t1 of simulate's float32 loop on one scene of n bodies.
-// st0, st1: two buffers of SIM_SLOTS * n * 3 floats; st0 holds the state
-// in its slots q, v (and a for the leapfrog, qc, vc with compensation),
-// and the state after step t1 lies in the same slots of st0 if t1 - t0 is
-// even, else of st1. m0, mh (n,); fst (t1 + 1,) at least; G, dt, kick =
-// dt / 2 and eps2 each rounded to float32. integrator: 0 Euler, 1
-// leapfrog. One launch forms the chunk's first inputs, then one launch a
-// step; no host synchronisation. Returns the first launch error, or
-// cudaErrorInvalidValue without launching.
+// Steps t0 + 1 .. t0 + K of simulate's float32 loop on one scene of n
+// bodies, t0 = *t0w read on the card (a device word). st0, st1: two
+// buffers of SIM_SLOTS * n * 3 floats; st0 holds the state in its slots
+// q, v (and a for the leapfrog, qc, vc with compensation), and the state
+// after step t0 + K lies in the same slots of st0 if K is even, else of
+// st1. m0, mh (n,); fst (t0 + K + 1,) at least; G, dt, kick = dt / 2 and
+// eps2 each rounded to float32. integrator: 0 Euler, 1 leapfrog. One
+// launch forms the chunk's first inputs, then one launch a step; no host
+// synchronisation, and nothing the host does depends on t0 (a capture of
+// the call serves every chunk of K steps). Returns the first launch
+// error, or cudaErrorInvalidValue without launching.
 extern "C" int sim_chunk_f32_launch(float* st0, float* st1, const float* m0,
                                     const float* mh, const float* fst, int n,
                                     int integrator, int compensated, float G,
-                                    float dt, float kick, float eps2, int t0,
-                                    int t1, void* stream) {
+                                    float dt, float kick, float eps2,
+                                    const int* t0w, int K, void* stream) {
     if (!args_ok(n, integrator, compensated)
-        || !nbody::sim_chunk_args_ok(n, integrator, t0, t1))
+        || !nbody::sim_chunk_args_ok(n, integrator, t0w, K))
         return static_cast<int>(cudaErrorInvalidValue);
-    const Args a{m0, mh, fst, n, 3LL * n, G, dt, kick, eps2};
+    Args a{m0, mh, fst, n, 3LL * n, G, dt, kick, eps2};
+    a.t0 = t0w;
     float* buf[2] = {st0, st1};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool comp = compensated != 0;
     return nbody::b2_large(1, n)
-               ? by_variant<nbody::B2Large>(integrator, comp, a, buf, t0, t1,
-                                            s)
-               : by_variant<nbody::B2Small>(integrator, comp, a, buf, t0, t1,
-                                            s);
+               ? by_variant<nbody::B2Large>(integrator, comp, a, buf, K, s)
+               : by_variant<nbody::B2Small>(integrator, comp, a, buf, K, s);
 }
 
 // One launch of a mesh rank (sim_step.cuh, the row-range form), as
@@ -199,11 +206,12 @@ extern "C" int sim_rows_f32_step(float* in, float* out, const float* m0,
                                  const float* mh, const float* fst, int n,
                                  int ni, int k, int r0, int integrator,
                                  int compensated, int tile, float G,
-                                 float dt, float kick, float eps2, int t,
-                                 int next, void* stream) {
+                                 float dt, float kick, float eps2,
+                                 const int* t0w, int off, int next,
+                                 void* stream) {
     Args a{m0, mh, fst, n, 3LL * n, G, dt, kick, eps2};
     if (!args_ok(n, integrator, compensated) || tile < 1
-        || !nbody::sim_rows_args(a, ni, k, r0, integrator, t,
+        || !nbody::sim_rows_args(a, ni, k, r0, integrator, t0w, off,
                                  out != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     a.tile = tile < n ? tile : n;
@@ -211,9 +219,9 @@ extern "C" int sim_rows_f32_step(float* in, float* out, const float* m0,
     const bool comp = compensated != 0;
     return nbody::b2_large(1, a.end - a.r0)
                ? rows_by_variant<nbody::B2Large>(integrator, comp, a, in,
-                                                 out, t, next, s)
+                                                 out, off, next, s)
                : rows_by_variant<nbody::B2Small>(integrator, comp, a, in,
-                                                 out, t, next, s);
+                                                 out, off, next, s);
 }
 
 // What the card says of the step kernel of this variant at n bodies, in

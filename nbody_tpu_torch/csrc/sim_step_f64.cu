@@ -1,6 +1,8 @@
 // simulate()'s binary64 step on one device: masses, kernel B1's force and
 // the update, Euler or leapfrog (KDK), with or without Kahan compensation,
-// one launch a step and one C call a chunk.
+// one launch a step and one C call a chunk, whose launches a CUDA graph
+// replays (sim_step.cuh: each launch takes its offset in the chunk and
+// reads the chunk's base step from a device word).
 //
 // Replaces, on simulate's binary64 path, nbody_tpu/ops/pallas_forces_e64.py
 // ::_e64_kernel together with the per-step work around it that the JAX
@@ -36,15 +38,17 @@ namespace {
 using Geo = nbody::F64Block;
 using Args = nbody::SimArgs<double>;
 
-// Step t from buffer in into buffer out; `next`: form what step t + 1
-// reads (every step but a chunk's last); Blocked: a mesh rank's rows
+// The step at offset `off` in its chunk from buffer in into buffer out;
+// `next`: form what the step after it reads (every step but a chunk's
+// last); Blocked: a mesh rank's rows
 template <int dist3, int integ, bool comp, bool Blocked>
 __global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
 sim_step_f64_kernel(Args a, const double* __restrict__ in,
-                    double* __restrict__ out, int t, int next) {
+                    double* __restrict__ out, int off, int next) {
     __shared__ typename Geo::Smem sm;
 
-    if (Blocked && next) nbody::sim_form_gm_all(a, out, t + 1);
+    if (Blocked && next)
+        nbody::sim_form_gm_all(a, out, nbody::sim_step_at(a, off) + 1);
     const long long S = a.slot;
     const int i0 = (Blocked ? a.r0 : 0) + blockIdx.x * Geo::R;
     const int live = min(Geo::R, (Blocked ? a.end : a.n) - i0);
@@ -65,119 +69,126 @@ sim_step_f64_kernel(Args a, const double* __restrict__ in,
     if (!folds) return;
     nbody::sim_update<double, integ, comp>(a, s, acc, out, e, next);
     if (!Blocked && next && x % 3 == 0)
-        nbody::sim_form_gm(a, out, i0 + x / 3, t + 1);
+        nbody::sim_form_gm(a, out, i0 + x / 3,
+                           nbody::sim_step_at(a, off) + 1);
 }
 
 template <int dist3, int integ, bool comp>
-int chunk(const Args& a, double* buf[2], int t0, int t1, cudaStream_t s) {
+int chunk(const Args& a, double* buf[2], int K, cudaStream_t s) {
     const dim3 grid((a.n + Geo::R - 1) / Geo::R);
     return nbody::sim_chunk<double, integ, comp>(
-        a, buf, t0, t1, s, [&](double* in, double* out, int t, int next) {
+        a, buf, K, s, [&](double* in, double* out, int off, int next) {
             sim_step_f64_kernel<dist3, integ, comp, false>
-                <<<grid, Geo::THREADS, 0, s>>>(a, in, out, t, next);
+                <<<grid, Geo::THREADS, 0, s>>>(a, in, out, off, next);
         });
 }
 
-// A mesh rank's launch: step t from in into out, or with out null the
-// chunk's pre-launch on in for step t
+// A mesh rank's launch: the step at offset `off` from in into out, or
+// with out null the chunk's pre-launch on in for that step
 template <int dist3, int integ, bool comp>
-int rows_step(const Args& a, double* in, double* out, int t, int next,
+int rows_step(const Args& a, double* in, double* out, int off, int next,
               cudaStream_t s) {
     if (out == nullptr)
-        return nbody::sim_pre<double, integ, comp>(a, in, t, s);
+        return nbody::sim_pre<double, integ, comp>(a, in, off, s);
     sim_step_f64_kernel<dist3, integ, comp, true>
         <<<nbody::sim_rows_grid(a, Geo::R), Geo::THREADS, 0, s>>>(
-            a, in, out, t, next);
+            a, in, out, off, next);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <int dist3>
-int by_variant(int integ, bool comp, const Args& a, double* buf[2], int t0,
-               int t1, cudaStream_t s) {
+int by_variant(int integ, bool comp, const Args& a, double* buf[2], int K,
+               cudaStream_t s) {
     using nbody::SIM_EULER;
     using nbody::SIM_LEAPFROG;
     if (integ == SIM_EULER)
-        return comp ? chunk<dist3, SIM_EULER, true>(a, buf, t0, t1, s)
-                    : chunk<dist3, SIM_EULER, false>(a, buf, t0, t1, s);
-    return comp ? chunk<dist3, SIM_LEAPFROG, true>(a, buf, t0, t1, s)
-                : chunk<dist3, SIM_LEAPFROG, false>(a, buf, t0, t1, s);
+        return comp ? chunk<dist3, SIM_EULER, true>(a, buf, K, s)
+                    : chunk<dist3, SIM_EULER, false>(a, buf, K, s);
+    return comp ? chunk<dist3, SIM_LEAPFROG, true>(a, buf, K, s)
+                : chunk<dist3, SIM_LEAPFROG, false>(a, buf, K, s);
 }
 
 template <int dist3>
 int rows_by_variant(int integ, bool comp, const Args& a, double* in,
-                    double* out, int t, int next, cudaStream_t s) {
+                    double* out, int off, int next, cudaStream_t s) {
     using nbody::SIM_EULER;
     using nbody::SIM_LEAPFROG;
     if (integ == SIM_EULER)
-        return comp ? rows_step<dist3, SIM_EULER, true>(a, in, out, t, next,
-                                                        s)
-                    : rows_step<dist3, SIM_EULER, false>(a, in, out, t, next,
-                                                         s);
-    return comp ? rows_step<dist3, SIM_LEAPFROG, true>(a, in, out, t, next, s)
-                : rows_step<dist3, SIM_LEAPFROG, false>(a, in, out, t, next,
-                                                        s);
+        return comp ? rows_step<dist3, SIM_EULER, true>(a, in, out, off,
+                                                        next, s)
+                    : rows_step<dist3, SIM_EULER, false>(a, in, out, off,
+                                                         next, s);
+    return comp ? rows_step<dist3, SIM_LEAPFROG, true>(a, in, out, off, next,
+                                                       s)
+                : rows_step<dist3, SIM_LEAPFROG, false>(a, in, out, off,
+                                                        next, s);
 }
 
 }  // namespace
 
-// Steps t0 + 1 .. t1 of simulate's binary64 loop on one scene of n bodies.
-// st0, st1: two buffers of SIM_SLOTS * n * 3 doubles; st0 holds the state
-// in its slots q, v (and a for the leapfrog, qc, vc with compensation),
-// and the state after step t1 lies in the same slots of st0 if t1 - t0 is
-// even, else of st1. m0, mh (n,); fst (t1 + 1,) at least. integrator: 0
-// Euler, 1 leapfrog; dist3: 1 dsqrt, 2 sqrt3 (native/core.cc's numbers).
-// One launch forms the chunk's first inputs, then one launch a step; no
-// host synchronisation. Returns the first launch error, or
-// cudaErrorInvalidValue without launching.
+// Steps t0 + 1 .. t0 + K of simulate's binary64 loop on one scene of n
+// bodies, t0 = *t0w read on the card (a device word). st0, st1: two
+// buffers of SIM_SLOTS * n * 3 doubles; st0 holds the state in its slots
+// q, v (and a for the leapfrog, qc, vc with compensation), and the state
+// after step t0 + K lies in the same slots of st0 if K is even, else of
+// st1. m0, mh (n,); fst (t0 + K + 1,) at least. integrator: 0 Euler, 1
+// leapfrog; dist3: 1 dsqrt, 2 sqrt3 (native/core.cc's numbers). One launch
+// forms the chunk's first inputs, then one launch a step; no host
+// synchronisation, and nothing the host does depends on t0, so a capture
+// of the call serves every chunk of K steps. Returns the first launch
+// error, or cudaErrorInvalidValue without launching.
 extern "C" int sim_chunk_f64_launch(double* st0, double* st1,
                                     const double* m0, const double* mh,
                                     const double* fst, int n, int integrator,
                                     int compensated, int dist3, double G,
                                     double dt, double kick, double eps2,
-                                    int t0, int t1, void* stream) {
-    if (!nbody::sim_chunk_args_ok(n, integrator, t0, t1)
+                                    const int* t0w, int K, void* stream) {
+    if (!nbody::sim_chunk_args_ok(n, integrator, t0w, K)
         || (compensated != 0 && compensated != 1)
         || (dist3 != nbody::DIST3_DSQRT && dist3 != nbody::DIST3_SQRT3))
         return static_cast<int>(cudaErrorInvalidValue);
-    const Args a{m0, mh, fst, n, 3LL * n, G, dt, kick, eps2};
+    Args a{m0, mh, fst, n, 3LL * n, G, dt, kick, eps2};
+    a.t0 = t0w;
     double* buf[2] = {st0, st1};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool comp = compensated != 0;
     return dist3 == nbody::DIST3_DSQRT
-               ? by_variant<nbody::DIST3_DSQRT>(integrator, comp, a, buf, t0,
-                                                t1, s)
-               : by_variant<nbody::DIST3_SQRT3>(integrator, comp, a, buf, t0,
-                                                t1, s);
+               ? by_variant<nbody::DIST3_DSQRT>(integrator, comp, a, buf, K,
+                                                s)
+               : by_variant<nbody::DIST3_SQRT3>(integrator, comp, a, buf, K,
+                                                s);
 }
 
-// One launch of a mesh rank (sim_step.cuh, the row-range form): step t of
-// the rows [r0, r0 + ni) of n bodies in k blocks of ni = ceil(n / k) rows,
-// from buffer in into buffer out, each SIM_SLOTS * k * ni * 3 doubles (slot
-// s holds row i at s * k * ni * 3 + 3 * i), reading every row's position
-// (q, or p for the leapfrog) and gm from in; `next`: form what step t + 1
-// reads, its gm for all n bodies. With out null, the chunk's pre-launch:
-// what step t reads, formed in buffer in from its whole state. The other
-// arguments are sim_chunk_f64_launch's. Returns the launch error, or
+// One launch of a mesh rank (sim_step.cuh, the row-range form): step
+// t = *t0w + off (off >= 1, t0w a device word) of the rows [r0, r0 + ni)
+// of n bodies in k blocks of ni = ceil(n / k) rows, from buffer in into
+// buffer out, each SIM_SLOTS * k * ni * 3 doubles (slot s holds row i at
+// s * k * ni * 3 + 3 * i), reading every row's position (q, or p for the
+// leapfrog) and gm from in; `next`: form what step t + 1 reads, its gm for
+// all n bodies. With out null, the chunk's pre-launch: what step t reads,
+// formed in buffer in from its whole state. The other arguments are
+// sim_chunk_f64_launch's. Returns the launch error, or
 // cudaErrorInvalidValue without launching.
 extern "C" int sim_rows_f64_step(double* in, double* out, const double* m0,
                                  const double* mh, const double* fst, int n,
                                  int ni, int k, int r0, int integrator,
                                  int compensated, int dist3, double G,
-                                 double dt, double kick, double eps2, int t,
-                                 int next, void* stream) {
+                                 double dt, double kick, double eps2,
+                                 const int* t0w, int off, int next,
+                                 void* stream) {
     Args a{m0, mh, fst, n, 3LL * n, G, dt, kick, eps2};
     if ((compensated != 0 && compensated != 1)
         || (dist3 != nbody::DIST3_DSQRT && dist3 != nbody::DIST3_SQRT3)
-        || !nbody::sim_rows_args(a, ni, k, r0, integrator, t,
+        || !nbody::sim_rows_args(a, ni, k, r0, integrator, t0w, off,
                                  out != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool comp = compensated != 0;
     return dist3 == nbody::DIST3_DSQRT
                ? rows_by_variant<nbody::DIST3_DSQRT>(integrator, comp, a, in,
-                                                     out, t, next, s)
+                                                     out, off, next, s)
                : rows_by_variant<nbody::DIST3_SQRT3>(integrator, comp, a, in,
-                                                     out, t, next, s);
+                                                     out, off, next, s);
 }
 
 // The slots of a state buffer of every step kernel (sim_step.cuh), for

@@ -119,7 +119,7 @@ def load() -> ctypes.CDLL:
     ]
     # simulate's step kernels: st0, st1, m0, mh, fst, n, integrator, then
     # compensated (f64, f32) and dist3 (f64); G, dt, kick and eps2 (dd:
-    # eps2 as hi, lo); t0, t1, cudaStream_t
+    # eps2 as hi, lo); the base step's device word t0, K, cudaStream_t
     for name, ints, real, reals in (
             ("sim_chunk_f64_launch", 4, ctypes.c_double, 4),
             ("sim_chunk_f32_launch", 3, ctypes.c_float, 4),
@@ -127,12 +127,12 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [*[ctypes.c_void_p] * 5, *[ctypes.c_int] * ints,
-                       *[real] * reals, ctypes.c_int, ctypes.c_int,
+                       *[real] * reals, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_void_p]
     # sim_rows_*_step, a mesh rank's launch: in, out, m0, mh, fst; n, ni,
     # k, r0, integrator, then compensated (f64, f32), dist3 (f64) or the
-    # tile (f32); G, dt, kick and eps2 as sim_chunk_*_launch has them; t,
-    # next, cudaStream_t
+    # tile (f32); G, dt, kick and eps2 as sim_chunk_*_launch has them; the
+    # word t0, the offset in the chunk, next, cudaStream_t
     for name, ints, real, reals in (
             ("sim_rows_f64_step", 7, ctypes.c_double, 4),
             ("sim_rows_f32_step", 7, ctypes.c_float, 4),
@@ -140,8 +140,8 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [*[ctypes.c_void_p] * 5, *[ctypes.c_int] * ints,
-                       *[real] * reals, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       *[real] * reals, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
     lib.div_probe_launch.restype = ctypes.c_int
     lib.div_probe_launch.argtypes = [
         *[ctypes.c_void_p] * 4,                  # n, d, want, got

@@ -367,10 +367,11 @@ def _check(mode: int, c: Carry, s0: int, s1: int,
 
 @dataclasses.dataclass
 class GraphCounts:
-    """The graded chunks' CUDA graphs in this process (`--stats` prints
-    them): replays, one a chunk; captures, one a chunk shape and set of
-    buffers; and the host seconds the captures took, their buffers'
-    allocation included."""
+    """The CUDA graphs of the graded chunks and of simulate's chunks
+    (ops/sim_step) in this process, counted once each by
+    `ChunkGraphs.run` (`--stats` prints them): replays, one a chunk;
+    captures, one a chunk shape and set of buffers; and the host seconds
+    the captures took, their buffers' allocation included."""
     replays: int = 0
     captures: int = 0
     capture_s: float = 0.0
@@ -404,7 +405,8 @@ def _set_word(word: torch.Tensor, s0: int) -> None:
 
 class ChunkGraphs:
     """A carry's captured chunks: one CUDA graph a chunk shape, replayed
-    for every chunk of that shape.
+    for every chunk of that shape; the graded carries' (`Carry.graphs`)
+    and simulate's (ops/sim_step `SimCarry.graphs`).
 
     A graph bakes its kernels' arguments, so every buffer it touches keeps
     its address for the graph's life: the carry's tensors and the entry's

@@ -23,13 +23,24 @@ its plain version (`sim_chunk_f64_ref`, `sim_chunk_f32_ref`,
 `sim_chunk_dd_ref`): the eager loop with the force kernel's plain twin as
 its force.
 
+Given `graphs` (ops/graded_step `ChunkGraphs`, which `simulate` passes
+for a chunk shape that repeats), a CUDA chunk is one replay of a CUDA
+graph, captured from the chunk's C call at the first chunk of its shape:
+the kernels read the chunk's base step from a device word written before
+each replay (csrc/sim_step.cuh), and the state stays in the carry's own
+pair of state buffers (`SimCarry.slots`), the graph copying an odd
+chunk's result back into the first. Without it, one direct C call on a
+fresh pair.
+
 The mesh (`simulate(mesh=)`) runs the row-range form of the same kernels
 (`sim_rows_chunk_f64`, `sim_rows_chunk_f32`, `sim_rows_chunk_dd`): every
 rank holds the whole carry, and a step is one launch on the rank's rows
 (those of its block of ops/graded_step `Blocks`) and one in-place
 all_gather (`gather`) of the positions the next step's force reads
 (csrc/sim_step.cuh has the layout); a chunk starts with one launch that
-forms the first step's inputs and ends with one all_gather of the carry.
+forms the first step's inputs and ends with one all_gather of the carry
+(into a buffer of the graph's own, with `graphs`: the graph holds the
+launches and every all_gather of the chunk).
 In float32 the force is the mesh's ordered sum at tile T
 (ops/accel_f32.accel_f32_ordered, bitwise the ordered ring's, B2's at
 T = 128). Their plain versions (`sim_rows_chunk_*_ref`) are the eager
@@ -50,7 +61,7 @@ from .accel_dd import accel_dd_ref, eps2_dd
 from .accel_f32 import TILE_J, accel_f32_ordered, accel_f32_ref, eps2_f32
 from .accel_f64 import accel_f64_ref
 from .forces import DIST3_CODES
-from .graded_step import Blocks
+from .graded_step import Blocks, ChunkGraphs, _stream
 from .integrate import accel, kdk_leapfrog_step, kdk_leapfrog_step_dd, \
     scalar, symplectic_euler_step, symplectic_euler_step_dd
 
@@ -65,12 +76,19 @@ class SimCarry:
     """simulate's state between steps: positions, velocities, the
     leapfrog's acceleration at q (None for Euler) and the Kahan
     compensations (None without compensation). Double-double tensors carry
-    a trailing axis of 2 (ops/ddfloat)."""
+    a trailing axis of 2 (ops/ddfloat). `graphs`: the run's captured
+    chunks (simulate makes them where a chunk shape repeats); `slots`: the
+    pair of state buffers (2, SLOTS, rows, 3[, 2]) that the graph path
+    keeps the state in, its q, v, a, qc and vc views of the first."""
     q: torch.Tensor
     v: torch.Tensor
     a: Optional[torch.Tensor] = None
     qc: Optional[torch.Tensor] = None
     vc: Optional[torch.Tensor] = None
+    graphs: Optional[ChunkGraphs] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    slots: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
 
 def comp_add(x, c, d):
@@ -210,30 +228,102 @@ def _on_cpu(c: SimCarry, name: str) -> bool:
     return False
 
 
-def _launch(wrapper, c: SimCarry, s0: int, s1: int, launch) -> None:
-    """A step kernel's chunk on a CUDA carry: the state into the slots of
-    the first of a ping-pong pair of state buffers, launch(st0, st1,
-    stream) (the kernel's C call, which returns its CUDA error), the
-    launches added to `wrapper.launches`, and the state read from the
-    buffer that holds step s1."""
+def _lib():
+    """The kernel library, checked against this module's slots."""
     from . import _build
 
     lib = _build.load()
     if lib.sim_step_slots() != SLOTS:
         raise RuntimeError(f"the step kernels' state buffer has "
                            f"{lib.sim_step_slots()} slots, not {SLOTS}")
-    st = c.q.new_empty((2, SLOTS) + tuple(c.q.shape))
-    for slot, x in enumerate((c.q, c.v, c.a, c.qc, c.vc)):
-        if x is not None:
-            st[0, slot] = x
-    with torch.cuda.device(c.q.device):
-        rc = launch(lib, st[0].data_ptr(), st[1].data_ptr(),
-                    torch.cuda.current_stream().cuda_stream)
+    return lib
+
+
+def _state(c: SimCarry) -> tuple:
+    """The carry's tensors in their slots' order (None where absent)."""
+    return (c.q, c.v, c.a, c.qc, c.vc)
+
+
+def _pair(c: SimCarry, rows: int, graphs) -> torch.Tensor:
+    """The ping-pong pair of state buffers (2, SLOTS, rows, ...) of a chunk
+    with the carry's state in the first buffer's slots: without graphs a
+    fresh one; with graphs the carry's own (`c.slots`, made at its first
+    chunk there, zero so that the mesh's rows past n stay zero), into
+    which only a tensor that is not already its slot is copied."""
+    shape = (2, SLOTS, rows) + tuple(c.q.shape[1:])
+    n = c.q.shape[0]
+    if graphs is None:
+        st = c.q.new_zeros(shape) if rows > n else c.q.new_empty(shape)
+    else:
+        st = c.slots
+        if st is None or st.shape != shape or st.dtype != c.q.dtype \
+                or st.device != c.q.device:
+            st = c.slots = c.q.new_zeros(shape)
+    for slot, x in enumerate(_state(c)):
+        if x is not None and (graphs is None
+                              or x.data_ptr() != st[0, slot].data_ptr()):
+            st[0, slot, :n] = x
+    return st
+
+
+def _run(c: SimCarry, s0: int, graphs, rows: int, key: tuple,
+         body) -> None:
+    """One chunk of a step kernel on a CUDA carry: body(st, word)() runs
+    the chunk's launches on the pair st (`_pair`), reading the base step
+    from the device word, and leaves the result in st[0]. Without graphs
+    it runs once, the base step in a fresh word; with graphs, one replay
+    of the graph of `key` and the pair, captured at the first chunk of
+    that key. The carry is then read from st[0]."""
+    st = _pair(c, rows, graphs)
+    if graphs is None:
+        body(st, torch.full((1,), s0, dtype=torch.int32,
+                            device=c.q.device))()
+    else:
+        graphs.run(key + (c.q.device, st.data_ptr()),
+                   lambda word: body(st, word), c.q.device, s0)
+    _read(c, st[0, :, :c.q.shape[0]])
+
+
+def _check_rc(wrapper, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA "
                            f"error {rc}")
-    wrapper.launches += s1 - s0 + 1
-    _read(c, st[(s1 - s0) % 2])
+
+
+def _launch(wrapper, c: SimCarry, s0: int, s1: int, graphs, name: str,
+            args: tuple) -> None:
+    """A step kernel's chunk on a CUDA carry through the library's C call
+    `name`(st0, st1, *args, word, K, stream) (the kernel's
+    sim_chunk_*_launch, which returns its CUDA error), and the launches
+    added to `wrapper.launches`."""
+    lib = _lib()
+    with torch.cuda.device(c.q.device):
+        _chunk(wrapper, c, s0, s1, graphs, name, args, lib)
+
+
+def _chunk(wrapper, c: SimCarry, s0: int, s1: int, graphs, name: str,
+           args: tuple, lib) -> None:
+    """`_launch`'s chunk with the kernel library `lib` (a stand-in in the
+    CPU tests): one C call (K step launches and the pre-launch) and, for
+    an odd K, the copy of the carry's slots back from the second buffer.
+    The key of its graph is the call's arguments but the buffers', which
+    `_run` adds: everything that decides the captured work."""
+    K = s1 - s0
+    launch = getattr(lib, name)
+    top = 1 + max(i for i, x in enumerate(_state(c)) if x is not None)
+
+    def body(st, word):
+        ptrs = (st[0].data_ptr(), st[1].data_ptr())
+
+        def run() -> None:
+            _check_rc(wrapper, launch(*ptrs, *args, word.data_ptr(), K,
+                                      _stream(st)))
+            if K % 2:
+                st[0, :top].copy_(st[1, :top])
+        return run
+
+    _run(c, s0, graphs, c.q.shape[0], ("chunk", name, args, K), body)
+    wrapper.launches += K + 1
 
 
 def _read(c: SimCarry, out: torch.Tensor) -> None:
@@ -267,7 +357,8 @@ def sim_chunk_f64_ref(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
 def sim_chunk_f64(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
                   fst: torch.Tensor, s0: int, s1: int, *, G: float,
                   eps: float, dt: float, integrator: str, compensated: bool,
-                  dist3_mode: str = "dsqrt") -> None:
+                  dist3_mode: str = "dsqrt",
+                  graphs: Optional[ChunkGraphs] = None) -> None:
     """Steps s0+1..s1 of simulate's binary64 loop on the carry c (q, v (n,
     3) float64; a for the leapfrog, qc and vc with compensation), in place,
     under m_eff = m0 + m_half * fst[s] (fst the oscillation table (steps +
@@ -275,7 +366,9 @@ def sim_chunk_f64(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
 
     A CUDA carry runs the step kernel: one C call, s1 - s0 step launches
     and one launch that forms the chunk's first inputs, all added to
-    `sim_chunk_f64.launches`; a CPU carry runs `sim_chunk_f64_ref`."""
+    `sim_chunk_f64.launches`; with `graphs`, as one replay of the graph of
+    the chunk's shape (module docstring). A CPU carry runs
+    `sim_chunk_f64_ref`."""
     _check(_F64, c, m0, m_half, fst, s0, s1, integrator, compensated)
     _check_dist3(dist3_mode)
     if _on_cpu(c, "sim_chunk_f64"):
@@ -283,12 +376,10 @@ def sim_chunk_f64(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
                           integrator=integrator, compensated=compensated,
                           dist3_mode=dist3_mode)
         return
-    _launch(sim_chunk_f64, c, s0, s1, lambda lib, st0, st1, stream:
-            lib.sim_chunk_f64_launch(
-                st0, st1, m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(),
-                c.q.shape[0], INTEGRATORS.index(integrator),
-                int(compensated), DIST3_CODES[dist3_mode], G, dt, 0.5 * dt,
-                eps * eps, s0, s1, stream))
+    _launch(sim_chunk_f64, c, s0, s1, graphs, "sim_chunk_f64_launch",
+            (m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(), c.q.shape[0],
+             INTEGRATORS.index(integrator), int(compensated),
+             DIST3_CODES[dist3_mode], G, dt, 0.5 * dt, eps * eps))
 
 
 sim_chunk_f64.launches = 0
@@ -313,7 +404,8 @@ def sim_chunk_f32_ref(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
 def sim_chunk_f32(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
                   fst: torch.Tensor, s0: int, s1: int, *, G: float,
                   eps: float, dt: float, integrator: str,
-                  compensated: bool) -> None:
+                  compensated: bool,
+                  graphs: Optional[ChunkGraphs] = None) -> None:
     """Steps s0+1..s1 of simulate's float32 loop on the carry c (q, v (n,
     3) float32; a for the leapfrog, qc and vc with compensation), in place,
     under m_eff = m0 + m_half * fst[s] (fst the oscillation table (steps +
@@ -322,19 +414,19 @@ def sim_chunk_f32(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
 
     A CUDA carry runs the step kernel: one C call, s1 - s0 step launches
     and one launch that forms the chunk's first inputs, all added to
-    `sim_chunk_f32.launches`; a CPU carry runs `sim_chunk_f32_ref`."""
+    `sim_chunk_f32.launches`; with `graphs`, as one replay of the graph of
+    the chunk's shape. A CPU carry runs `sim_chunk_f32_ref`."""
     _check(_F32, c, m0, m_half, fst, s0, s1, integrator, compensated)
     if _on_cpu(c, "sim_chunk_f32"):
         sim_chunk_f32_ref(c, m0, m_half, fst, s0, s1, G=G, eps=eps, dt=dt,
                           integrator=integrator, compensated=compensated)
         return
     f32 = torch.float32
-    _launch(sim_chunk_f32, c, s0, s1, lambda lib, st0, st1, stream:
-            lib.sim_chunk_f32_launch(
-                st0, st1, m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(),
-                c.q.shape[0], INTEGRATORS.index(integrator),
-                int(compensated), scalar(G, f32), scalar(dt, f32),
-                scalar(0.5 * dt, f32), eps2_f32(eps), s0, s1, stream))
+    _launch(sim_chunk_f32, c, s0, s1, graphs, "sim_chunk_f32_launch",
+            (m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(), c.q.shape[0],
+             INTEGRATORS.index(integrator), int(compensated),
+             scalar(G, f32), scalar(dt, f32), scalar(0.5 * dt, f32),
+             eps2_f32(eps)))
 
 
 sim_chunk_f32.launches = 0
@@ -357,7 +449,8 @@ def sim_chunk_dd_ref(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
 
 def sim_chunk_dd(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
                  fst: torch.Tensor, s0: int, s1: int, *, G: float,
-                 eps: float, dt: float, integrator: str) -> None:
+                 eps: float, dt: float, integrator: str,
+                 graphs: Optional[ChunkGraphs] = None) -> None:
     """Steps s0+1..s1 of simulate's double-double loop on the carry c (q,
     v (n, 3, 2) float64 pairs (hi, lo); a for the leapfrog; no
     compensation), in place, under m_eff = m0 + m_half * fst[s] (m0,
@@ -366,17 +459,17 @@ def sim_chunk_dd(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
 
     A CUDA carry runs the step kernel: one C call, s1 - s0 step launches
     and one launch that forms the chunk's first inputs, all added to
-    `sim_chunk_dd.launches`; a CPU carry runs `sim_chunk_dd_ref`."""
+    `sim_chunk_dd.launches`; with `graphs`, as one replay of the graph of
+    the chunk's shape. A CPU carry runs `sim_chunk_dd_ref`."""
     _check(_DD, c, m0, m_half, fst, s0, s1, integrator, False)
     if _on_cpu(c, "sim_chunk_dd"):
         sim_chunk_dd_ref(c, m0, m_half, fst, s0, s1, G=G, eps=eps, dt=dt,
                          integrator=integrator)
         return
-    _launch(sim_chunk_dd, c, s0, s1, lambda lib, st0, st1, stream:
-            lib.sim_chunk_dd_launch(
-                st0, st1, m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(),
-                c.q.shape[0], INTEGRATORS.index(integrator), G, dt,
-                0.5 * dt, *eps2_dd(eps), s0, s1, stream))
+    _launch(sim_chunk_dd, c, s0, s1, graphs, "sim_chunk_dd_launch",
+            (m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(), c.q.shape[0],
+             INTEGRATORS.index(integrator), G, dt, 0.5 * dt,
+             *eps2_dd(eps)))
 
 
 sim_chunk_dd.launches = 0
@@ -413,59 +506,74 @@ def rows_force(cross, blocks: Blocks, gather):
 
 
 def _launch_rows(wrapper, c: SimCarry, s0: int, s1: int, blocks: Blocks,
-                 gather, leapfrog: bool, step) -> None:
-    """A row-range chunk on a CUDA carry: the whole state into the slots
-    (k * ni rows each) of the first of a ping-pong pair of buffers, the
-    pre-launch, then each step one launch a block of `blocks.mine`
-    (step(in, out, r0, t, next), the kernel's C call with null out for the
-    pre-launch, which returns its CUDA error) and, but after the last,
-    `gather` of the slot the next force reads; then one `gather` of the
-    carry's slots, read back into c."""
-    from . import _build
-
-    lib = _build.load()
-    if lib.sim_step_slots() != SLOTS:
-        raise RuntimeError(f"the step kernels' state buffer has "
-                           f"{lib.sim_step_slots()} slots, not {SLOTS}")
-    n, k, ni = blocks.n, blocks.k, blocks.ni
-    tail = tuple(c.q.shape[1:])
-    st = c.q.new_zeros((2, SLOTS, k * ni) + tail)
-    state = (c.q, c.v, c.a, c.qc, c.vc)
-    kept = [slot for slot, x in enumerate(state) if x is not None]
-    for slot in kept:
-        st[0, slot, :n] = state[slot]
-    ptrs = [x.data_ptr() for x in st]
-    # each buffer's slot that the next step's force reads, in blocks
-    pos = [x[_SLOT_P if leapfrog else 0].unflatten(0, (k, ni)) for x in st]
-
-    def call(i, o, r0, t, nxt):
-        rc = step(i, o, r0, t, nxt, stream)
-        if rc != 0:
-            raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
-                               f"CUDA error {rc}")
-
+                 gather, graphs, name: str, head: tuple,
+                 tail: tuple) -> None:
+    """A row-range chunk on a CUDA carry through the library's C call
+    `name`(in, out, *head, r0, *tail, word, off, next, stream) (the
+    kernel's sim_rows_*_step, which returns its CUDA error), and its
+    launches added to `wrapper.launches`."""
+    lib = _lib()
     with torch.cuda.device(c.q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        call(ptrs[0], None, blocks.mine[0] * ni, s0 + 1, 0)
-        for t in range(s0 + 1, s1 + 1):
-            i = (t - s0 - 1) & 1
-            for r in blocks.mine:
-                call(ptrs[i], ptrs[i ^ 1], r * ni, t, int(t < s1))
-            if gather is not None and t < s1:
-                gather(pos[i ^ 1])
-        wrapper.launches += 1 + (s1 - s0) * len(blocks.mine)
-        out = st[(s1 - s0) & 1]
-        if gather is not None:
-            carry = out[kept].unflatten(1, (k, ni)).movedim(1, 0)
-            carry = carry.contiguous()
+        _rows_chunk(wrapper, c, s0, s1, blocks, gather, graphs, name, head,
+                    tail, lib)
+
+
+def _rows_chunk(wrapper, c: SimCarry, s0: int, s1: int, blocks: Blocks,
+                gather, graphs, name: str, head: tuple, tail: tuple,
+                lib) -> None:
+    """`_launch_rows`'s chunk with the kernel library `lib` (a stand-in in
+    the CPU tests), on a pair of buffers of k * ni rows a slot whose first
+    holds the whole state: the pre-launch, then each step one launch a
+    block of `blocks.mine` and, but after the last, `gather` of the slot
+    the next force reads; then one `gather` of the carry's slots through a
+    buffer of the body's own into the first buffer (without a gather, an
+    odd K's copy back from the second). With graphs the graph holds all
+    of it, the in-place NCCL all_gathers too."""
+    K = s1 - s0
+    k, ni, mine = blocks.k, blocks.ni, blocks.mine
+    step = getattr(lib, name)
+    kept = [slot for slot, x in enumerate(_state(c)) if x is not None]
+    # the slot the next step's force reads (tail opens with the integrator)
+    pos_slot = _SLOT_P if INTEGRATORS[tail[0]] == "leapfrog" else 0
+
+    def body(st, word):
+        ptrs = [x.data_ptr() for x in st]
+        pos = [x[pos_slot].unflatten(0, (k, ni)) for x in st]
+        # the carry's slots in blocks (k, slots, ni, ...), gathered
+        carry = None if gather is None else \
+            st.new_empty((k, len(kept), ni) + tuple(st.shape[3:]))
+
+        def call(i, o, r0, off, nxt):
+            _check_rc(wrapper, step(i, o, *head, r0, *tail, word.data_ptr(),
+                                    off, nxt, _stream(st)))
+
+        def run() -> None:
+            call(ptrs[0], None, mine[0] * ni, 1, 0)
+            for off in range(1, K + 1):
+                i = (off - 1) & 1
+                for r in mine:
+                    call(ptrs[i], ptrs[i ^ 1], r * ni, off, int(off < K))
+                if gather is not None and off < K:
+                    gather(pos[i ^ 1])
+            last = st[K & 1]
+            if gather is None:
+                if K & 1:
+                    st[0, :kept[-1] + 1].copy_(last[:kept[-1] + 1])
+                return
+            for j, slot in enumerate(kept):
+                carry[:, j].copy_(last[slot].unflatten(0, (k, ni)))
             gather(carry)
-            out[kept] = carry.movedim(0, 1).flatten(1, 2)
-    _read(c, out[:, :n])
+            for j, slot in enumerate(kept):
+                st[0, slot].unflatten(0, (k, ni)).copy_(carry[:, j])
+        return run
+
+    _run(c, s0, graphs, k * ni, ("rows", name, head, tail, K, blocks, gather),
+         body)
+    wrapper.launches += 1 + K * len(mine)
 
 
 def _rows_head(m0, m_half, fst, blocks: Blocks) -> tuple:
-    """The arguments of a rows launch from m0 to k (sim_rows_*_step),
-    formed once a chunk: the host's time a step is the mesh's step."""
+    """The arguments of a rows launch from m0 to k (sim_rows_*_step)."""
     return (m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(), blocks.n,
             blocks.ni, blocks.k)
 
@@ -514,7 +622,8 @@ def sim_rows_chunk_f64(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
                        fst: torch.Tensor, s0: int, s1: int, *,
                        blocks: Blocks, gather=None, G: float, eps: float,
                        dt: float, integrator: str, compensated: bool,
-                       dist3_mode: str = "dsqrt") -> None:
+                       dist3_mode: str = "dsqrt",
+                       graphs: Optional[ChunkGraphs] = None) -> None:
     """Steps s0+1..s1 of simulate's binary64 loop on a mesh rank's whole
     carry c, in place (arguments as `sim_chunk_f64`): the rows of the
     blocks `blocks.mine` (the rank's one, with `gather` an in-place
@@ -524,8 +633,11 @@ def sim_rows_chunk_f64(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
     A CUDA carry runs the binary64 step kernel's row-range form: a
     pre-launch, one launch a step and block, a gather a step but the last,
     and one gather of the carry; all launches added to
-    `sim_rows_chunk_f64.launches`. A CPU carry runs
-    `sim_rows_chunk_f64_ref`. Bitwise `sim_chunk_f64` on every split."""
+    `sim_rows_chunk_f64.launches`; with `graphs`, all of it as one replay
+    of the graph of the chunk's shape. A CPU carry runs
+    `sim_rows_chunk_f64_ref`. Bitwise `sim_chunk_f64` on every split.
+    Every rank must pass graphs for the same chunks: a rank that captured
+    and one that did not would call the collectives apart."""
     _check_dist3(dist3_mode)
     if _rows_common(_F64, c, m0, m_half, fst, s0, s1, blocks, gather,
                     integrator, compensated):
@@ -535,16 +647,11 @@ def sim_rows_chunk_f64(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
                                compensated=compensated,
                                dist3_mode=dist3_mode)
         return
-    from . import _build
-
-    lib = _build.load()
-    head = _rows_head(m0, m_half, fst, blocks)
     tail = (INTEGRATORS.index(integrator), int(compensated),
             DIST3_CODES[dist3_mode], G, dt, 0.5 * dt, eps * eps)
-    _launch_rows(sim_rows_chunk_f64, c, s0, s1, blocks, gather,
-                 integrator == "leapfrog",
-                 lambda i, o, r0, t, nxt, stream: lib.sim_rows_f64_step(
-                     i, o, *head, r0, *tail, t, nxt, stream))
+    _launch_rows(sim_rows_chunk_f64, c, s0, s1, blocks, gather, graphs,
+                 "sim_rows_f64_step", _rows_head(m0, m_half, fst, blocks),
+                 tail)
 
 
 sim_rows_chunk_f64.launches = 0
@@ -583,10 +690,11 @@ def sim_rows_chunk_f32(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
                        fst: torch.Tensor, s0: int, s1: int, *,
                        blocks: Blocks, gather=None, G: float, eps: float,
                        dt: float, integrator: str, compensated: bool,
-                       tile: int = TILE_J) -> None:
+                       tile: int = TILE_J,
+                       graphs: Optional[ChunkGraphs] = None) -> None:
     """Steps s0+1..s1 of simulate's float32 loop on a mesh rank's whole
     carry c, in place, the force the mesh's ordered sum at `tile` (bitwise
-    `sim_chunk_f32` at tile 128); blocks and gather as
+    `sim_chunk_f32` at tile 128); blocks, gather and graphs as
     `sim_rows_chunk_f64` has them, the rest as `sim_chunk_f32`. A CUDA
     carry runs the float32 step kernel's row-range form (its launches
     added to `sim_rows_chunk_f32.launches`), a CPU carry
@@ -599,18 +707,13 @@ def sim_rows_chunk_f32(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
                                integrator=integrator,
                                compensated=compensated, tile=tile)
         return
-    from . import _build
-
-    lib = _build.load()
     f32 = torch.float32
-    head = _rows_head(m0, m_half, fst, blocks)
     tail = (INTEGRATORS.index(integrator), int(compensated), tile,
             scalar(G, f32), scalar(dt, f32), scalar(0.5 * dt, f32),
             eps2_f32(eps))
-    _launch_rows(sim_rows_chunk_f32, c, s0, s1, blocks, gather,
-                 integrator == "leapfrog",
-                 lambda i, o, r0, t, nxt, stream: lib.sim_rows_f32_step(
-                     i, o, *head, r0, *tail, t, nxt, stream))
+    _launch_rows(sim_rows_chunk_f32, c, s0, s1, blocks, gather, graphs,
+                 "sim_rows_f32_step", _rows_head(m0, m_half, fst, blocks),
+                 tail)
 
 
 sim_rows_chunk_f32.launches = 0
@@ -638,27 +741,24 @@ def sim_rows_chunk_dd_ref(c: SimCarry, m0: torch.Tensor,
 def sim_rows_chunk_dd(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
                       fst: torch.Tensor, s0: int, s1: int, *,
                       blocks: Blocks, gather=None, G: float, eps: float,
-                      dt: float, integrator: str) -> None:
+                      dt: float, integrator: str,
+                      graphs: Optional[ChunkGraphs] = None) -> None:
     """Steps s0+1..s1 of simulate's double-double loop on a mesh rank's
-    whole carry c, in place; blocks and gather as `sim_rows_chunk_f64`
-    has them, the rest as `sim_chunk_dd`. A CUDA carry runs the
-    double-double step kernel's row-range form (its launches added to
-    `sim_rows_chunk_dd.launches`), a CPU carry `sim_rows_chunk_dd_ref`."""
+    whole carry c, in place; blocks, gather and graphs as
+    `sim_rows_chunk_f64` has them, the rest as `sim_chunk_dd`. A CUDA
+    carry runs the double-double step kernel's row-range form (its
+    launches added to `sim_rows_chunk_dd.launches`), a CPU carry
+    `sim_rows_chunk_dd_ref`."""
     if _rows_common(_DD, c, m0, m_half, fst, s0, s1, blocks, gather,
                     integrator, False):
         sim_rows_chunk_dd_ref(c, m0, m_half, fst, s0, s1, blocks=blocks,
                               gather=gather, G=G, eps=eps, dt=dt,
                               integrator=integrator)
         return
-    from . import _build
-
-    lib = _build.load()
-    head = _rows_head(m0, m_half, fst, blocks)
     tail = (INTEGRATORS.index(integrator), G, dt, 0.5 * dt, *eps2_dd(eps))
-    _launch_rows(sim_rows_chunk_dd, c, s0, s1, blocks, gather,
-                 integrator == "leapfrog",
-                 lambda i, o, r0, t, nxt, stream: lib.sim_rows_dd_step(
-                     i, o, *head, r0, *tail, t, nxt, stream))
+    _launch_rows(sim_rows_chunk_dd, c, s0, s1, blocks, gather, graphs,
+                 "sim_rows_dd_step", _rows_head(m0, m_half, fst, blocks),
+                 tail)
 
 
 sim_rows_chunk_dd.launches = 0

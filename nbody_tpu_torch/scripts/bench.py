@@ -32,8 +32,10 @@ Prints one JSON line in the root line's shape: `metric`
 `extra` n, steps, the best run's seconds, ms a step, every run's seconds,
 the warm-up's, the card as `nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader` prints it, the step kernel's launches
-(`sim_chunk_f32.launches`, counted from 0 at the run's start) and every
-kernel wrapper's launches in the run.
+(`sim_chunk_f32.launches`, counted from 0 at the run's start), every
+kernel wrapper's launches in the run, and the CUDA graphs' replays and
+captures in the run (0: each run is a new carry and one direct C call,
+so no timed repeat holds a capture).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.plummer import plummer_scene
+from ..ops.graded_step import GRAPHS
 from ..ops.sim_step import SimCarry, sim_chunk_f32
 
 G, EPS, DT = 6.674e-11, 1e-3, 60.0
@@ -121,6 +124,7 @@ def bench(n: int, steps: int, repeats: int, device: str = "cuda") -> tuple:
 
     inputs = setup(n, steps, dev)
     launches0 = {k.__name__: k.launches for k in kernel_wrappers()}
+    graphs0 = (GRAPHS.replays, GRAPHS.captures)
     t0 = time.perf_counter()
     run(*inputs[:5], steps, inputs[5])
     sync()
@@ -150,6 +154,8 @@ def bench(n: int, steps: int, repeats: int, device: str = "cuda") -> tuple:
             "device": card_name() if dev.type == "cuda" else "cpu",
             "launches": counts["sim_chunk_f32"],
             "launches_by_kernel": counts,
+            "graph_replays": GRAPHS.replays - graphs0[0],
+            "graph_captures": GRAPHS.captures - graphs0[1],
         },
     }
     return rec, out

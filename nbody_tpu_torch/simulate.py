@@ -11,20 +11,24 @@ precision:
 The port of `nbody_tpu.simulate.simulate`, on one device or over a mesh of
 ranks (`mesh`). On one device a chunk goes to the step kernel's wrapper
 of its precision (ops/sim_step: `sim_chunk_f32`, `sim_chunk_f64`,
-`sim_chunk_dd`): on a card one C call, one launch a step, as the JAX
-package compiles a chunk into one scan; on the CPU its plain version. On
-the mesh every rank holds the whole state and a chunk goes to the row-range
-form of the same step kernel (ops/sim_step: `sim_rows_chunk_f32`,
+`sim_chunk_dd`): on a card one launch a step, as the JAX package compiles
+a chunk into one scan; on the CPU its plain version. On the mesh every
+rank holds the whole state and a chunk goes to the row-range form of the
+same step kernel (ops/sim_step: `sim_rows_chunk_f32`,
 `sim_rows_chunk_f64`, `sim_rows_chunk_dd`): a step is one launch on the
 rank's rows and one in-place all_gather over 'body' of the positions the
 next step reads, with the same bits as the step kernels on one device
-(in 'f32' at tile 128). `chunk` sets how often the host reads the state
-back for `on_chunk` and never changes the arithmetic, so results are
-bitwise invariant to it.
+(in 'f32' at tile 128). A chunk whose length repeats in the run is one
+replay of a CUDA graph, captured at its first chunk (on the mesh with its
+all_gathers); one that runs once is the direct C call, whose host work
+costs about what a capture does (`_plan`). `chunk` sets how often the
+host reads the state back for `on_chunk` and never changes the
+arithmetic, so results are bitwise invariant to it.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, Optional
 
@@ -40,6 +44,7 @@ from .ops.integrate import accel, accel_dd_state
 from .ops.accel_dd import accel_dd
 from .ops.accel_f32 import accel_f32_ordered
 from .ops.accel_f64 import accel_f64
+from .ops.graded_step import ChunkGraphs
 from .ops.sim_step import SimCarry, m_eff_dd, rows_force, sim_chunk_dd, \
     sim_chunk_f32, sim_chunk_f64, sim_rows_chunk_dd, sim_rows_chunk_f32, \
     sim_rows_chunk_f64
@@ -217,29 +222,52 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
           "compensated": compensated}
     fst_t = torch.from_numpy(table).to(dev)
     if precision == "f32":
-        def advance(s0, s1):
+        def advance(s0, s1, graphs):
             if rows is None:
-                sim_chunk_f32(c, m0t, m_halft, fst_t, s0, s1, **kw)
+                sim_chunk_f32(c, m0t, m_halft, fst_t, s0, s1, graphs=graphs,
+                              **kw)
             else:
                 sim_rows_chunk_f32(c, m0t, m_halft, fst_t, s0, s1, **rows,
-                                   tile=tile, **kw)
+                                   tile=tile, graphs=graphs, **kw)
     else:
-        def advance(s0, s1):
+        def advance(s0, s1, graphs):
             if rows is None:
                 sim_chunk_f64(c, m0t, m_halft, fst_t, s0, s1,
-                              dist3_mode=dist3, **kw)
+                              dist3_mode=dist3, graphs=graphs, **kw)
             else:
                 sim_rows_chunk_f64(c, m0t, m_halft, fst_t, s0, s1, **rows,
-                                   dist3_mode=dist3, **kw)
+                                   dist3_mode=dist3, graphs=graphs, **kw)
 
-    step = 0
-    while step < n_steps:
-        n_sub = min(chunk, n_steps - step)
-        advance(step, step + n_sub)
-        step += n_sub
+    return _march(c, n_steps, chunk, advance, host_state, on_chunk)
+
+
+def _plan(n_steps: int, chunk: int) -> list:
+    """The run's chunks (s0, s1, repeats): `repeats` where the chunk's
+    length occurs more than once. Capturing a chunk into a CUDA graph
+    costs about what its direct C call's host work costs, plus the
+    graph's instantiation, so only a length that repeats is captured
+    (once) and replayed; one that runs once, such as a single chunk or
+    the shorter last one, is the direct call. The plan depends on n_steps
+    and chunk alone, so every rank of a mesh makes the same captures."""
+    spans = [(s0, min(s0 + chunk, n_steps))
+             for s0 in range(0, n_steps, chunk)]
+    count = collections.Counter(s1 - s0 for s0, s1 in spans)
+    return [(s0, s1, count[s1 - s0] > 1) for s0, s1 in spans]
+
+
+def _march(c, n_steps: int, chunk: int, advance, host_state,
+           on_chunk) -> SimState:
+    """advance(s0, s1, graphs) over the run's chunks (`_plan`), graphs
+    the run's ChunkGraphs (c.graphs) for a chunk whose length repeats and
+    None otherwise; on_chunk after each; the final host state."""
+    plan = _plan(n_steps, chunk)
+    if any(repeats for _, _, repeats in plan):
+        c.graphs = ChunkGraphs()
+    for s0, s1, repeats in plan:
+        advance(s0, s1, c.graphs if repeats else None)
         if on_chunk is not None:
-            on_chunk(host_state(step))
-    return host_state(step)
+            on_chunk(host_state(s1))
+    return host_state(n_steps)
 
 
 def _seed_force(precision: str, rows: dict, *, eps: float, dist3: str,
@@ -304,17 +332,11 @@ def _simulate_dd(scene: Scene, cfg: SimConfig, *, n_steps: int,
     kw = {"G": G, "eps": eps, "dt": dt, "integrator": integrator}
     fst_t = torch.from_numpy(table).to(device)
 
-    def advance(s0, s1):
+    def advance(s0, s1, graphs):
         if rows is None:
-            sim_chunk_dd(c, m0t, m_halft, fst_t, s0, s1, **kw)
+            sim_chunk_dd(c, m0t, m_halft, fst_t, s0, s1, graphs=graphs, **kw)
         else:
-            sim_rows_chunk_dd(c, m0t, m_halft, fst_t, s0, s1, **rows, **kw)
+            sim_rows_chunk_dd(c, m0t, m_halft, fst_t, s0, s1, **rows,
+                              graphs=graphs, **kw)
 
-    step = 0
-    while step < n_steps:
-        n_sub = min(chunk, n_steps - step)
-        advance(step, step + n_sub)
-        step += n_sub
-        if on_chunk is not None:
-            on_chunk(host_state(step))
-    return host_state(step)
+    return _march(c, n_steps, chunk, advance, host_state, on_chunk)

@@ -132,6 +132,7 @@ def test_bench_cpu_line_and_state_match_jax_pallas_step(monkeypatch,
     assert len(extra["repeat_s"]) == 3 and extra["elapsed_s"] == min(
         extra["repeat_s"])
     assert extra["launches"] == 0         # the plain version launches nothing
+    assert (extra["graph_replays"], extra["graph_captures"]) == (0, 0)
     assert rec["value"] == pytest.approx(n * n * steps / extra["elapsed_s"])
 
     _, got = bench.bench(n, steps, 1, "cpu")

@@ -222,11 +222,13 @@ class FakeSimLib:
     """A stand-in for the kernel library's simulate entry points on the
     CPU: `sim_rows_f64_step` and `sim_rows_f32_step` emulate the step
     kernels' row-range form (csrc/sim_step.cuh) in PyTorch ops on the
-    buffers their pointers name (the CPU tensors' own memory), so that
-    ops/sim_step's host loop around them (slots, ping-pong, pre-launch,
-    gathers, the carry's read-back) runs on gloo ranks. Each op is the
-    eager loop's; the force is the plain cross form on the rows (float32:
-    the ordered sum at the tile)."""
+    buffers their pointers name (the CPU tensors' own memory), the step
+    t = t0 + off with t0 read through the pointer of the chunk's base-step
+    word, so that ops/sim_step's host loop around them (slots, ping-pong,
+    pre-launch, gathers, the carry's read-back) runs on gloo ranks. Each
+    op is the eager loop's; the force is the plain cross form on the rows
+    (float32: the ordered sum at the tile). `calls` records each launch
+    as (r0, t, next, pre-launch, in, out)."""
 
     def __init__(self, eps: float, dist3: str = "dsqrt"):
         self.eps, self.dist3 = eps, dist3
@@ -237,19 +239,21 @@ class FakeSimLib:
         return 10
 
     def sim_rows_f64_step(self, i, o, m0, mh, fst, n, ni, k, r0, integ,
-                          comp, dist3, G, dt, kick, eps2, t, nxt, stream):
+                          comp, dist3, G, dt, kick, eps2, word, off, nxt,
+                          stream):
         import torch
         return self._step(torch.float64, i, o, m0, mh, fst, n, ni, k, r0,
-                          integ, comp, None, G, dt, kick, t, nxt)
+                          integ, comp, None, G, dt, kick, word, off, nxt)
 
     def sim_rows_f32_step(self, i, o, m0, mh, fst, n, ni, k, r0, integ,
-                          comp, tile, G, dt, kick, eps2, t, nxt, stream):
+                          comp, tile, G, dt, kick, eps2, word, off, nxt,
+                          stream):
         import torch
         return self._step(torch.float32, i, o, m0, mh, fst, n, ni, k, r0,
-                          integ, comp, tile, G, dt, kick, t, nxt)
+                          integ, comp, tile, G, dt, kick, word, off, nxt)
 
     def _step(self, dtype, i, o, m0p, mhp, fstp, n, ni, k, r0, integ, comp,
-              tile, G, dt, kick, t, nxt):
+              tile, G, dt, kick, word, off, nxt):
         import ctypes
 
         import torch
@@ -258,7 +262,8 @@ class FakeSimLib:
             accel_f32_ref
         from nbody_tpu_torch.ops.accel_f64 import accel_f64_ref
 
-        self.calls.append((r0, t, nxt, o is None))
+        t = ctypes.c_int32.from_address(word).value + off
+        self.calls.append((r0, t, nxt, o is None, i, o))
         ct = ctypes.c_double if dtype == torch.float64 else ctypes.c_float
 
         def view(ptr, count):
@@ -351,15 +356,20 @@ def fake_kernels(monkeypatch_set, lib) -> None:
                     lambda: types.SimpleNamespace(cuda_stream=0))
 
 
-def sim_rows_emulated(axes: dict, precision: str, jobs: list) -> dict:
+def sim_rows_emulated(axes: dict, precision: str, jobs: list,
+                      graphs: bool = False) -> dict:
     """{label: (q, v, a, qc, vc) as numpy (None where absent)} of
     ops/sim_step's row-range chunks on this rank through FakeSimLib, the
     rank's block of the 'body' axis and the real in-place gather; a job is
     (label, q, v, a, m0, m_half, fst, chunks, kw) with host arrays, kw
-    the chunk's keywords (G, eps, dt, integrator, compensated, tile)."""
+    the chunk's keywords (G, eps, dt, integrator, compensated, tile).
+    With `graphs`, every chunk goes through the graph path with a
+    stand-in capture (the captured body, gathers and all, runs at each
+    replay) and each label maps to (that tuple, the job's captures)."""
     import torch
 
     from nbody_tpu_torch.ops import sim_step as ss
+    from nbody_tpu_torch.ops.graded_step import ChunkGraphs
     from nbody_tpu_torch.parallel.sharded import body_blocks
 
     mesh = _mesh(axes)
@@ -374,9 +384,13 @@ def sim_rows_emulated(axes: dict, precision: str, jobs: list) -> dict:
             c.qc, c.vc = torch.zeros_like(c.q), torch.zeros_like(c.v)
         fn = ss.sim_rows_chunk_f64 if precision == "f64" else \
             ss.sim_rows_chunk_f32
+        g = ChunkGraphs(capture=lambda body: body) if graphs else None
+        m0t, m_halft, fstt = t(m0), t(m_half), t(fst)
         for s0, s1 in chunks:
-            fn(c, t(m0), t(m_half), t(fst), s0, s1, blocks=blocks,
-               gather=gather, **kw)
+            fn(c, m0t, m_halft, fstt, s0, s1, blocks=blocks, gather=gather,
+               graphs=g, **kw)
         out[label] = tuple(None if x is None else x.numpy()
                            for x in (c.q, c.v, c.a, c.qc, c.vc))
+        if graphs:
+            out[label] = (out[label], len(g.entries))
     return out
