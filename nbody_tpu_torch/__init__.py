@@ -15,7 +15,8 @@ twin with the same op order, which the tests hold against the JAX package.
 `simulate` is the general API ("integrate this system for N steps"): in
 'f32' it runs kernel B2 (csrc/accel_f32.cu), a hand-written CUDA fp32
 all-pairs rsqrt force, in 'f64'/'e64'/'dd' kernel B1 (on one card inside
-the binary64 step kernel, csrc/sim_step_f64.cu, one launch a step), and
+the binary64 step kernel, csrc/sim_step_f64.cu, one persistent launch a
+chunk up to 512 bodies, one launch a step above), and
 beyond binary64 ('tf3', 'ddp', 'dd+') kernel B4 (csrc/accel_dd.cu) in
 double-double. The graded solve's 'tf3' runs the double-double graded step
 kernel (csrc/graded_step_dd.cu), and every driver can checkpoint and

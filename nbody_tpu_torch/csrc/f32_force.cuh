@@ -187,12 +187,13 @@ __device__ __forceinline__ void b2_add_tile_sums(
 // (ni, 3) against the sources qj (nj, 3) under gmj (nj,), summed over the
 // tiles `tl` (B2Tiles or GroupTiles of nj sources); every thread of the
 // block calls it. acc[k] ends holding the owned (row, component) k
-// (B2Shape::OWN) of the thread.
+// (B2Shape::OWN) of the thread. No __restrict__ on the pointers:
+// simulate's persistent chunk (sim_step.cuh) writes them between steps,
+// so no load of them may take the non-coherent path.
 template <class S, class Tiles>
 __device__ __forceinline__ void b2_rows_force_tiled(
-        const float* __restrict__ qi, int ni, long long i0,
-        const float* __restrict__ qj, const float* __restrict__ gmj,
-        const Tiles& tl, float eps2, typename S::Smem& sm,
+        const float* qi, int ni, long long i0, const float* qj,
+        const float* gmj, const Tiles& tl, float eps2, typename S::Smem& sm,
         float (&acc)[S::OWN]) {
     const int tid = threadIdx.x, lane = tid % 32;
     const int lr = lane % S::LR;
@@ -266,9 +267,9 @@ __device__ __forceinline__ void b2_rows_force_tiled(
 // B2's own sum (B2Tiles)
 template <class S>
 __device__ __forceinline__ void b2_rows_force(
-        const float* __restrict__ qi, int ni, long long i0,
-        const float* __restrict__ qj, const float* __restrict__ gmj, int nj,
-        float eps2, typename S::Smem& sm, float (&acc)[S::OWN]) {
+        const float* qi, int ni, long long i0, const float* qj,
+        const float* gmj, int nj, float eps2, typename S::Smem& sm,
+        float (&acc)[S::OWN]) {
     b2_rows_force_tiled<S>(qi, ni, i0, qj, gmj, B2Tiles{nj}, eps2, sm,
                            acc);
 }

@@ -15,9 +15,11 @@
 // of the tiles after it and no barrier stops the whole block.
 //
 // The sources come from an accessor (Src), so that each caller gives them
-// as it has them: a table of positions and gm_j (B1 and simulate's step;
-// F64Table below), or positions in the mesh's row blocks with gm_j formed
-// from the masses a pair (B1'; graded_step_f64.cu).
+// as it has them: a table of positions and gm_j (B1 and simulate's mesh
+// step; F64Table below), or positions in the mesh's row blocks with gm_j
+// formed from the masses a pair (B1'; graded_step_f64.cu). Simulate's
+// persistent chunk, which writes its sources between steps, reads them
+// with plain loads a tile ahead (f64_rows_terms_ahead).
 //
 // Bound: the fp64 pipe and the fold's latency. A pair costs 40 fp64
 // instructions in the SASS (scripts/sass_count.py), a square root and one
@@ -67,8 +69,8 @@ struct F64Geometry {
 // runs that many rows.
 using F64Block = F64Geometry<4, 64, 4, 2>;
 
-// Kernel B1's and simulate's sources: positions q (n, 3) and gm (n,), read
-// a pair (the L1 cache holds a tile)
+// Kernel B1's sources: positions q (n, 3) and gm (n,), read a pair (the L1
+// cache holds a tile)
 struct F64Table {
     const double* __restrict__ q;
     const double* __restrict__ gm;
@@ -94,8 +96,7 @@ __device__ __forceinline__ void f64_bar_arrive(int id, int count) {
 
 // The block's rows into shared memory (a row past `live` reads as 0)
 template <class Geo>
-__device__ __forceinline__ void f64_rows_qi(const double* __restrict__ qi,
-                                            int live,
+__device__ __forceinline__ void f64_rows_qi(const double* qi, int live,
                                             typename Geo::Smem& sm) {
     const int tid = threadIdx.x;
     if (tid < 3 * Geo::R) {
@@ -129,6 +130,56 @@ __device__ __forceinline__ void f64_rows_terms(const Src& src, int n,
                                 sm.term[buf][2][g][jj]);
         }
         f64_bar_arrive(Geo::BAR_FULL + buf, Geo::THREADS);
+    }
+}
+
+// Source j of positions q (n, 3) and gm (n,) as a compute thread holds it,
+// or zeros past n. Plain loads, no __restrict__: simulate's persistent
+// chunk (sim_step.cuh) writes q and gm between its steps, and a load the
+// compiler may take as read-only for the kernel's life (ld.global.nc)
+// could return the value of the step before.
+struct F64Src {
+    double x, y, z, gm;
+    __device__ __forceinline__ static F64Src at(const double* q,
+                                                const double* gm, int j,
+                                                int n) {
+        if (j >= n) return {0.0, 0.0, 0.0, 0.0};
+        return {q[3LL * j], q[3LL * j + 1], q[3LL * j + 2], gm[j]};
+    }
+};
+
+// f64_rows_terms over sources q (n, 3) and gm (n,) that the caller's
+// kernel writes (simulate's persistent chunk), each tile's source loaded
+// into registers a tile ahead, so that its latency (an L2 access: other
+// blocks wrote it in the step before) runs under the tile before; `cur`:
+// tile 0's source of this thread's column, F64Src::at(q, gm, jj, n), which
+// the caller loads before f64_rows_qi so that the two loads overlap. The
+// terms, and so the bits, are f64_rows_terms's. On an H100 it took a
+// persistent chunk's step from 3.105 to 3.012 us at n = 20, 4.867 to
+// 4.766 at 256, 7.049 to 6.978 at 512 (PERF.md).
+template <class Geo, int dist3>
+__device__ __forceinline__ void f64_rows_terms_ahead(const double* q,
+                                                     const double* gm, int n,
+                                                     int live, double eps2,
+                                                     typename Geo::Smem& sm,
+                                                     F64Src cur) {
+    constexpr int TJ = Geo::TJ, NBUF = Geo::NBUF;
+    const int g = threadIdx.x / TJ, jj = threadIdx.x % TJ;
+    const int tiles = (n + TJ - 1) / TJ;
+    const double xi = sm.qi[0][g], yi = sm.qi[1][g], zi = sm.qi[2][g];
+    const bool row_live = g < live;
+    for (int k = 0; k < tiles; ++k) {
+        const int buf = k % NBUF;
+        const int j = k * TJ + jj;
+        const F64Src next = F64Src::at(q, gm, j + TJ, n);
+        if (k >= NBUF) f64_bar_sync(Geo::BAR_EMPTY + buf, Geo::THREADS);
+        if (row_live && j < n)
+            b1_pair_term<dist3>(cur.x, cur.y, cur.z, cur.gm, xi, yi, zi,
+                                eps2, sm.term[buf][0][g][jj],
+                                sm.term[buf][1][g][jj],
+                                sm.term[buf][2][g][jj]);
+        f64_bar_arrive(Geo::BAR_FULL + buf, Geo::THREADS);
+        cur = next;
     }
 }
 

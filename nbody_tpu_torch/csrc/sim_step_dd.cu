@@ -82,10 +82,10 @@ sim_step_dd_kernel(Args a, const dd* __restrict__ in, dd* __restrict__ out,
 }
 
 template <int integ>
-int chunk(const Args& a, dd* buf[2], int K, cudaStream_t s) {
+int chunk(const Args& a, dd* buf[2], int K, cudaStream_t s, int* launched) {
     const dim3 grid((a.n + Geo::R - 1) / Geo::R);
     return nbody::sim_chunk<dd, integ, false>(
-        a, buf, K, s, [&](dd* in, dd* out, int off, int next) {
+        a, buf, K, s, launched, [&](dd* in, dd* out, int off, int next) {
             sim_step_dd_kernel<integ, false>
                 <<<grid, Geo::THREADS, 0, s>>>(a, in, out, off, next);
         });
@@ -114,18 +114,22 @@ int rows_step(const Args& a, dd* in, dd* out, int off, int next,
 // of st1. m0, mh (n,) pairs; fst (t0 + K + 1,) doubles at least; G, dt and
 // kick = dt / 2 binary64 values (taken as (x, 0)), eps2 = eps2_hi +
 // eps2_lo. integrator: 0 Euler, 1 leapfrog. One launch forms the chunk's
-// first inputs, then one launch a step; no host synchronisation, and
-// nothing the host does depends on t0 (a capture of the call serves every
-// chunk of K steps). Returns the first launch error, or
-// cudaErrorInvalidValue without launching.
+// first inputs, then one launch a step; *launched (a host int) is set to
+// the launches made. No host synchronisation, and nothing the host does
+// depends on t0 (a capture of the call serves every chunk of K steps).
+// Returns the first launch error, or cudaErrorInvalidValue without
+// launching.
 extern "C" int sim_chunk_dd_launch(double* st0, double* st1,
                                    const double* m0, const double* mh,
                                    const double* fst, int n, int integrator,
                                    double G, double dt, double kick,
                                    double eps2_hi, double eps2_lo,
-                                   const int* t0w, int K, void* stream) {
-    if (!nbody::sim_chunk_args_ok(n, integrator, t0w, K))
+                                   const int* t0w, int K, int* launched,
+                                   void* stream) {
+    if (!nbody::sim_chunk_args_ok(n, integrator, t0w, K)
+        || launched == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
+    *launched = 0;
     Args a{reinterpret_cast<const dd*>(m0),
                  reinterpret_cast<const dd*>(mh),
                  fst,
@@ -139,8 +143,8 @@ extern "C" int sim_chunk_dd_launch(double* st0, double* st1,
     dd* buf[2] = {reinterpret_cast<dd*>(st0), reinterpret_cast<dd*>(st1)};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     return integrator == nbody::SIM_EULER
-               ? chunk<nbody::SIM_EULER>(a, buf, K, s)
-               : chunk<nbody::SIM_LEAPFROG>(a, buf, K, s);
+               ? chunk<nbody::SIM_EULER>(a, buf, K, s, launched)
+               : chunk<nbody::SIM_LEAPFROG>(a, buf, K, s, launched);
 }
 
 // One launch of a mesh rank (sim_step.cuh, the row-range form), as

@@ -1,32 +1,48 @@
 // simulate()'s binary64 step on one device: masses, kernel B1's force and
-// the update, Euler or leapfrog (KDK), with or without Kahan compensation,
-// one launch a step and one C call a chunk, whose launches a CUDA graph
-// replays (sim_step.cuh: each launch takes its offset in the chunk and
-// reads the chunk's base step from a device word).
+// the update, Euler or leapfrog (KDK), with or without Kahan compensation.
+// Up to PERSISTENT_MAX_N bodies a chunk of K steps is one persistent
+// launch (sim_step.cuh sim_persistent): every block stays resident, walks
+// its row blocks step after step, and waits at a grid barrier between
+// steps; above it, where that measured slower, a launch a step of the
+// row-range kernel on all n rows. One C call a chunk, which a CUDA graph
+// can replay (the launches read the chunk's base step from a device
+// word).
 //
 // Replaces, on simulate's binary64 path, nbody_tpu/ops/pallas_forces_e64.py
 // ::_e64_kernel together with the per-step work around it that the JAX
 // package compiles into one scan per chunk (nbody_tpu/simulate.py
 // _chunk_scan). sim_step.cuh has the step's ops, the state buffer's slots
-// and the chunk's launches; here the force is kernel B1's (forces.cuh
+// and the chunk's drivers; here the force is kernel B1's (forces.cuh
 // b1_pair_term folded over ascending j), so a chunk is bit-equal to the
 // eager loop around kernel B1 (and to its plain version,
 // ops/sim_step.sim_chunk_f64_ref).
 //
-// Launch t's block owns R rows: its force is the binary64 block force
-// (f64_force.cuh) over the sources p (leapfrog) or q (Euler) and gm, in
-// B1's geometry; its fold lane (row, component) reads its state before the
-// fold, then updates its component and forms what step t + 1 reads of it.
+// A row block is R rows (B1's geometry, F64Block): its force is the
+// binary64 block force (f64_force.cuh) over the sources p (leapfrog) or q
+// (Euler) and gm, each compute thread's source loaded a tile ahead
+// (f64_rows_terms_ahead: plain loads, the chunk writes them); its fold
+// lane (row, component) reads its state and forms its row's gm of step
+// t + 1 before the fold, then updates its component and forms the rest
+// of what step t + 1 reads of it. The block's compute threads leave the
+// step once their terms are written and its idle fold lanes once the fold
+// is done; every thread then meets the others at the __syncthreads
+// between row blocks and at the grid barrier (sim_step.cuh has what may go
+// wrong in one launch: co-residency, stale reads, the barrier's cost).
+// The grid is min(n / R row blocks, the blocks the card holds at once): at
+// n = 512, 128 blocks of one row block each.
 //
-// The mesh (sim_rows_f64_step, the Blocked instantiation): a launch takes
-// a rank's rows [r0, end) and every row's position (sim_step.cuh has the
-// layout), and forms the next step's gm for all n bodies; the host
-// gathers the positions between two launches. Replaces, on simulate's
-// binary64 mesh path, the JAX package's chunk scan inside shard_map
-// (nbody_tpu/simulate.py _chunk_scan_mesh).
+// The mesh (sim_rows_f64_step, the Blocked form), and one device above
+// PERSISTENT_MAX_N on all n rows: a launch a step on a rank's rows
+// [r0, end), reading every row's position (sim_step.cuh has
+// the layout), forming the next step's gm for all n bodies; the host
+// gathers the positions between two launches (an NCCL call cannot sit
+// inside a kernel). Replaces, on simulate's binary64 mesh path, the JAX
+// package's chunk scan inside shard_map (nbody_tpu/simulate.py
+// _chunk_scan_mesh).
 //
 // Bound: kernel B1's (the fp64 pipe, 40 instructions a pair, and the
-// fold's latency) plus the launch; the update is a few ops a body.
+// fold's latency: n dependent adds a row component) plus a grid barrier a
+// step in one chunk; the update is a few ops a body.
 
 #include <cuda_runtime.h>
 
@@ -37,27 +53,43 @@ namespace {
 
 using Geo = nbody::F64Block;
 using Args = nbody::SimArgs<double>;
+// The largest n whose one-device chunk is one persistent launch; above it
+// a launch a step (sim_step_f64_kernel on all n rows), which measured
+// faster there on an H100 (PERF.md: 12.63 against 12.89 us a step at
+// n = 1024, 30.6 against 53.9 at 2048)
+constexpr int PERSISTENT_MAX_N = 512;
 
-// The step at offset `off` in its chunk from buffer in into buffer out;
-// `next`: form what the step after it reads (every step but a chunk's
-// last); Blocked: a mesh rank's rows
+// The block's share of step t: the live rows from i0, from buffer in into
+// buffer out; `next`: form what step t + 1 reads (every step but a
+// chunk's last). Blocked: a mesh rank's rows (or one device's above
+// PERSISTENT_MAX_N), whose launch forms every body's gm apart and reads
+// its sources through kernel B1's table (F64Table, whose loads may take
+// the read-only path: nothing writes its input while it runs). Else one
+// device's persistent chunk, whose loads that wait for nothing of this
+// step are issued early: a compute thread's first source before the rows'
+// barrier and each next one a tile ahead (f64_rows_terms_ahead), a fold
+// lane's gm of step t + 1 before the fold (out's gm slot is read only in
+// the next step).
 template <int dist3, int integ, bool comp, bool Blocked>
-__global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
-sim_step_f64_kernel(Args a, const double* __restrict__ in,
-                    double* __restrict__ out, int off, int next) {
-    __shared__ typename Geo::Smem sm;
-
-    if (Blocked && next)
-        nbody::sim_form_gm_all(a, out, nbody::sim_step_at(a, off) + 1);
+__device__ __forceinline__ void step_rows(const Args& a, const double* in,
+                                          double* out, int i0, int live,
+                                          int t, int next,
+                                          typename Geo::Smem& sm) {
     const long long S = a.slot;
-    const int i0 = (Blocked ? a.r0 : 0) + blockIdx.x * Geo::R;
-    const int live = min(Geo::R, (Blocked ? a.end : a.n) - i0);
-    if (Blocked && live <= 0) return;   // a rank without rows
     const double* pos = in + nbody::sim_pos_slot<integ>() * S;
+    const double* gm = in + nbody::SLOT_GM * S;
+    const bool computes = threadIdx.x < Geo::NC;
+    nbody::F64Src first{};
+    if (!Blocked && computes)
+        first = nbody::F64Src::at(pos, gm, threadIdx.x % Geo::TJ, a.n);
     nbody::f64_rows_qi<Geo>(pos + 3LL * i0, live, sm);
-    if (threadIdx.x < Geo::NC) {
-        const nbody::F64Table sources{pos, in + nbody::SLOT_GM * S};
-        nbody::f64_rows_terms<Geo, dist3>(sources, a.n, live, a.eps2, sm);
+    if (computes) {
+        if constexpr (Blocked)
+            nbody::f64_rows_terms<Geo, dist3>(nbody::F64Table{pos, gm}, a.n,
+                                              live, a.eps2, sm);
+        else
+            nbody::f64_rows_terms_ahead<Geo, dist3>(pos, gm, a.n, live,
+                                                    a.eps2, sm, first);
         return;
     }
     int x;
@@ -65,21 +97,63 @@ sim_step_f64_kernel(Args a, const double* __restrict__ in,
     const long long e = 3LL * i0 + x;
     nbody::SimLane<double> s{};
     if (folds) s = nbody::sim_load<double, integ, comp>(a, in, e);
+    if (!Blocked && next && folds && x % 3 == 0)
+        nbody::sim_form_gm(a, out, i0 + x / 3, t + 1);
     const double acc = nbody::f64_rows_fold<Geo>(a.n, folds, sm);
     if (!folds) return;
     nbody::sim_update<double, integ, comp>(a, s, acc, out, e, next);
-    if (!Blocked && next && x % 3 == 0)
-        nbody::sim_form_gm(a, out, i0 + x / 3,
-                           nbody::sim_step_at(a, off) + 1);
 }
 
+// One device: the K steps of a chunk from st0, one persistent launch
 template <int dist3, int integ, bool comp>
-int chunk(const Args& a, double* buf[2], int K, cudaStream_t s) {
-    const dim3 grid((a.n + Geo::R - 1) / Geo::R);
+__global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
+sim_chunk_f64_kernel(Args a, double* st0, double* st1, int K) {
+    __shared__ typename Geo::Smem sm;
+    const int rows = (a.n + Geo::R - 1) / Geo::R;
+    nbody::sim_persistent<double, integ, comp>(
+        a, st0, st1, K, rows,
+        [&](const double* in, double* out, int rb, int t, int next) {
+            const int i0 = rb * Geo::R;
+            step_rows<dist3, integ, comp, false>(
+                a, in, out, i0, min(Geo::R, a.n - i0), t, next, sm);
+        });
+}
+
+// A launch a step: the step at offset `off` in its chunk from buffer in
+// into buffer out, on the rows [a.r0, a.end) (a mesh rank's, or all n on
+// one device above PERSISTENT_MAX_N)
+template <int dist3, int integ, bool comp>
+__global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
+sim_step_f64_kernel(Args a, const double* __restrict__ in,
+                    double* __restrict__ out, int off, int next) {
+    __shared__ typename Geo::Smem sm;
+
+    const int t = nbody::sim_step_at(a, off);
+    if (next) nbody::sim_form_gm_all(a, out, t + 1);
+    const int i0 = a.r0 + blockIdx.x * Geo::R;
+    const int live = min(Geo::R, a.end - i0);
+    if (live <= 0) return;   // a rank without rows
+    step_rows<dist3, integ, comp, true>(a, in, out, i0, live, t, next, sm);
+}
+
+int row_blocks(int n) { return (n + Geo::R - 1) / Geo::R; }
+
+bool persistent(int n) { return n <= PERSISTENT_MAX_N; }
+
+template <int dist3, int integ, bool comp>
+int chunk(const Args& a, double* buf[2], int K, int cap, cudaStream_t s,
+          int* launched) {
+    if (persistent(a.n))
+        return nbody::sim_persistent_launch<Geo::THREADS>(
+            sim_chunk_f64_kernel<dist3, integ, comp>, row_blocks(a.n), cap,
+            s, launched, a, buf[0], buf[1], K);
+    const Args w = nbody::sim_whole(a);
+    const dim3 grid = nbody::sim_rows_grid(w, Geo::R);
     return nbody::sim_chunk<double, integ, comp>(
-        a, buf, K, s, [&](double* in, double* out, int off, int next) {
-            sim_step_f64_kernel<dist3, integ, comp, false>
-                <<<grid, Geo::THREADS, 0, s>>>(a, in, out, off, next);
+        w, buf, K, s, launched,
+        [&](double* in, double* out, int off, int next) {
+            sim_step_f64_kernel<dist3, integ, comp>
+                <<<grid, Geo::THREADS, 0, s>>>(w, in, out, off, next);
         });
 }
 
@@ -90,38 +164,42 @@ int rows_step(const Args& a, double* in, double* out, int off, int next,
               cudaStream_t s) {
     if (out == nullptr)
         return nbody::sim_pre<double, integ, comp>(a, in, off, s);
-    sim_step_f64_kernel<dist3, integ, comp, true>
+    sim_step_f64_kernel<dist3, integ, comp>
         <<<nbody::sim_rows_grid(a, Geo::R), Geo::THREADS, 0, s>>>(
             a, in, out, off, next);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int dist3>
-int by_variant(int integ, bool comp, const Args& a, double* buf[2], int K,
-               cudaStream_t s) {
+// f(Variant<dist3, integ, comp>{}) for the variant asked for: f reads the
+// variant's template arguments from its argument's type
+template <int dist3, int integ, bool comp>
+struct Variant {
+    static constexpr int D3 = dist3, INTEG = integ;
+    static constexpr bool COMP = comp;
+};
+
+template <int dist3, class F>
+int on_variant(int integ, bool comp, F&& f) {
     using nbody::SIM_EULER;
     using nbody::SIM_LEAPFROG;
     if (integ == SIM_EULER)
-        return comp ? chunk<dist3, SIM_EULER, true>(a, buf, K, s)
-                    : chunk<dist3, SIM_EULER, false>(a, buf, K, s);
-    return comp ? chunk<dist3, SIM_LEAPFROG, true>(a, buf, K, s)
-                : chunk<dist3, SIM_LEAPFROG, false>(a, buf, K, s);
+        return comp ? f(Variant<dist3, SIM_EULER, true>{})
+                    : f(Variant<dist3, SIM_EULER, false>{});
+    return comp ? f(Variant<dist3, SIM_LEAPFROG, true>{})
+                : f(Variant<dist3, SIM_LEAPFROG, false>{});
 }
 
-template <int dist3>
-int rows_by_variant(int integ, bool comp, const Args& a, double* in,
-                    double* out, int off, int next, cudaStream_t s) {
-    using nbody::SIM_EULER;
-    using nbody::SIM_LEAPFROG;
-    if (integ == SIM_EULER)
-        return comp ? rows_step<dist3, SIM_EULER, true>(a, in, out, off,
-                                                        next, s)
-                    : rows_step<dist3, SIM_EULER, false>(a, in, out, off,
-                                                         next, s);
-    return comp ? rows_step<dist3, SIM_LEAPFROG, true>(a, in, out, off, next,
-                                                       s)
-                : rows_step<dist3, SIM_LEAPFROG, false>(a, in, out, off,
-                                                        next, s);
+template <class F>
+int on_variant(int dist3, int integ, bool comp, F&& f) {
+    return dist3 == nbody::DIST3_DSQRT
+               ? on_variant<nbody::DIST3_DSQRT>(integ, comp, f)
+               : on_variant<nbody::DIST3_SQRT3>(integ, comp, f);
+}
+
+bool args_ok(int n, int integrator, int compensated, int dist3) {
+    return nbody::sim_args_ok(n, integrator)
+           && (compensated == 0 || compensated == 1)
+           && (dist3 == nbody::DIST3_DSQRT || dist3 == nbody::DIST3_SQRT3);
 }
 
 }  // namespace
@@ -132,31 +210,37 @@ int rows_by_variant(int integ, bool comp, const Args& a, double* in,
 // q, v (and a for the leapfrog, qc, vc with compensation), and the state
 // after step t0 + K lies in the same slots of st0 if K is even, else of
 // st1. m0, mh (n,); fst (t0 + K + 1,) at least. integrator: 0 Euler, 1
-// leapfrog; dist3: 1 dsqrt, 2 sqrt3 (native/core.cc's numbers). One launch
-// forms the chunk's first inputs, then one launch a step; no host
+// leapfrog; dist3: 1 dsqrt, 2 sqrt3 (native/core.cc's numbers). Up to
+// PERSISTENT_MAX_N bodies one persistent cooperative launch on min(n / 4
+// row blocks, the blocks the card holds at once, grid_cap if grid_cap >
+// 0) blocks; above it the pre-launch and one launch a step (grid_cap
+// unused). *launched (a host int) is set to the launches made. No host
 // synchronisation, and nothing the host does depends on t0, so a capture
 // of the call serves every chunk of K steps. Returns the first launch
-// error, or cudaErrorInvalidValue without launching.
+// error (a persistent grid the card cannot hold at once is refused, never
+// run another way), or cudaErrorInvalidValue without launching.
 extern "C" int sim_chunk_f64_launch(double* st0, double* st1,
                                     const double* m0, const double* mh,
                                     const double* fst, int n, int integrator,
                                     int compensated, int dist3, double G,
                                     double dt, double kick, double eps2,
-                                    const int* t0w, int K, void* stream) {
-    if (!nbody::sim_chunk_args_ok(n, integrator, t0w, K)
-        || (compensated != 0 && compensated != 1)
-        || (dist3 != nbody::DIST3_DSQRT && dist3 != nbody::DIST3_SQRT3))
+                                    int grid_cap, const int* t0w, int K,
+                                    int* launched, void* stream) {
+    if (!args_ok(n, integrator, compensated, dist3) || grid_cap < 0
+        || !nbody::sim_chunk_args_ok(n, integrator, t0w, K)
+        || launched == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
+    *launched = 0;
     Args a{m0, mh, fst, n, 3LL * n, G, dt, kick, eps2};
     a.t0 = t0w;
     double* buf[2] = {st0, st1};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool comp = compensated != 0;
-    return dist3 == nbody::DIST3_DSQRT
-               ? by_variant<nbody::DIST3_DSQRT>(integrator, comp, a, buf, K,
-                                                s)
-               : by_variant<nbody::DIST3_SQRT3>(integrator, comp, a, buf, K,
-                                                s);
+    return on_variant(dist3, integrator, compensated != 0,
+                      [&](auto v) {
+                          using V = decltype(v);
+                          return chunk<V::D3, V::INTEG, V::COMP>(
+                              a, buf, K, grid_cap, s, launched);
+                      });
 }
 
 // One launch of a mesh rank (sim_step.cuh, the row-range form): step
@@ -177,18 +261,45 @@ extern "C" int sim_rows_f64_step(double* in, double* out, const double* m0,
                                  const int* t0w, int off, int next,
                                  void* stream) {
     Args a{m0, mh, fst, n, 3LL * n, G, dt, kick, eps2};
-    if ((compensated != 0 && compensated != 1)
-        || (dist3 != nbody::DIST3_DSQRT && dist3 != nbody::DIST3_SQRT3)
+    if (!args_ok(n, integrator, compensated, dist3)
         || !nbody::sim_rows_args(a, ni, k, r0, integrator, t0w, off,
                                  out != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool comp = compensated != 0;
-    return dist3 == nbody::DIST3_DSQRT
-               ? rows_by_variant<nbody::DIST3_DSQRT>(integrator, comp, a, in,
-                                                     out, off, next, s)
-               : rows_by_variant<nbody::DIST3_SQRT3>(integrator, comp, a, in,
-                                                     out, off, next, s);
+    return on_variant(dist3, integrator, compensated != 0,
+                      [&](auto v) {
+                          using V = decltype(v);
+                          return rows_step<V::D3, V::INTEG, V::COMP>(
+                              a, in, out, off, next, s);
+                      });
+}
+
+// What the card says of the persistent chunk kernel of this variant at n
+// bodies (sim_step.cuh sim_persistent_info: registers, local bytes,
+// threads, resident blocks an SM, rows a row block, grid, row blocks).
+extern "C" int sim_step_f64_info(int n, int integrator, int compensated,
+                                 int dist3, int* out) {
+    if (!args_ok(n, integrator, compensated, dist3))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return on_variant(dist3, integrator, compensated != 0,
+                      [&](auto v) {
+                          using V = decltype(v);
+                          return nbody::sim_persistent_info(
+                              sim_chunk_f64_kernel<V::D3, V::INTEG, V::COMP>,
+                              Geo::THREADS, Geo::R, row_blocks(n), out);
+                      });
+}
+
+// K grid syncs alone, in the grid of the Euler chunk at n bodies (dsqrt,
+// no compensation; at most grid_cap blocks if grid_cap > 0): the
+// barrier's own cost. Returns the launch error, or cudaErrorInvalidValue.
+extern "C" int sim_barrier_f64_launch(int n, int K, int grid_cap,
+                                      void* stream) {
+    if (n < 1 || K < 1 || grid_cap < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    return nbody::sim_barrier_launch<Geo::THREADS>(
+        sim_chunk_f64_kernel<nbody::DIST3_DSQRT, nbody::SIM_EULER, false>,
+        row_blocks(n), grid_cap, K, static_cast<cudaStream_t>(stream));
 }
 
 // The slots of a state buffer of every step kernel (sim_step.cuh), for

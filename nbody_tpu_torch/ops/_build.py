@@ -119,16 +119,25 @@ def load() -> ctypes.CDLL:
     ]
     # simulate's step kernels: st0, st1, m0, mh, fst, n, integrator, then
     # compensated (f64, f32) and dist3 (f64); G, dt, kick and eps2 (dd:
-    # eps2 as hi, lo); the base step's device word t0, K, cudaStream_t
-    for name, ints, real, reals in (
-            ("sim_chunk_f64_launch", 4, ctypes.c_double, 4),
-            ("sim_chunk_f32_launch", 3, ctypes.c_float, 4),
-            ("sim_chunk_dd_launch", 2, ctypes.c_double, 5)):
+    # eps2 as hi, lo); the persistent chunks' grid cap (f64, f32); the
+    # base step's device word t0, K, the host int that receives the
+    # launches made, cudaStream_t
+    for name, ints, real, reals, cap in (
+            ("sim_chunk_f64_launch", 4, ctypes.c_double, 4, 1),
+            ("sim_chunk_f32_launch", 3, ctypes.c_float, 4, 1),
+            ("sim_chunk_dd_launch", 2, ctypes.c_double, 5, 0)):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [*[ctypes.c_void_p] * 5, *[ctypes.c_int] * ints,
-                       *[real] * reals, ctypes.c_void_p, ctypes.c_int,
+                       *[real] * reals, *[ctypes.c_int] * cap,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p]
+    # a chunk of grid syncs alone in a persistent chunk's grid: n, K, grid
+    # cap, cudaStream_t
+    for name in ("sim_barrier_f64_launch", "sim_barrier_f32_launch"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [*[ctypes.c_int] * 3, ctypes.c_void_p]
     # sim_rows_*_step, a mesh rank's launch: in, out, m0, mh, fst; n, ni,
     # k, r0, integrator, then compensated (f64, f32), dist3 (f64) or the
     # tile (f32); G, dt, kick and eps2 as sim_chunk_*_launch has them; the
@@ -149,13 +158,17 @@ def load() -> ctypes.CDLL:
     ]
     lib.sim_step_slots.restype = ctypes.c_int
     lib.sim_step_slots.argtypes = []
-    # what the card says of B2 and the float32 and double-double step
-    # kernels (int out[5], forces.cuh kernel_info): B2 and the f32 step at
-    # n rows, each step kernel of one variant
+    # what the card says of B2 and the double-double step kernel (int
+    # out[5], forces.cuh kernel_info) and of the persistent binary64 and
+    # float32 chunks (int out[7], sim_step.cuh sim_persistent_info): B2 at
+    # n rows, the chunks at n bodies (n, integrator, compensated; dist3 in
+    # binary64), the dd step kernel of one variant
     lib.accel_f32_info.restype = ctypes.c_int
     lib.accel_f32_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.sim_step_f32_info.restype = ctypes.c_int
     lib.sim_step_f32_info.argtypes = [*[ctypes.c_int] * 3, ctypes.c_void_p]
+    lib.sim_step_f64_info.restype = ctypes.c_int
+    lib.sim_step_f64_info.argtypes = [*[ctypes.c_int] * 4, ctypes.c_void_p]
     lib.sim_step_dd_info.restype = ctypes.c_int
     lib.sim_step_dd_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
     # what the card says of a binary64 force kernel (int out[7])

@@ -426,10 +426,10 @@ class ChunkGraphs:
         self.entries: dict = {}
 
     def run(self, key: tuple, build: Callable, device: torch.device,
-            s0: int) -> None:
+            s0: int) -> Callable:
         """Replay the graph of `key` for the chunk from step s0, first
         capturing build(word)(), the chunk's launches reading their base
-        step from `word`, if there is none."""
+        step from `word`, if there is none; returns the captured body."""
         entry = self.entries.get(key)
         if entry is None:
             t = time.perf_counter()
@@ -438,10 +438,11 @@ class ChunkGraphs:
             entry = self.entries[key] = (self.capture(body), word, body)
             GRAPHS.captures += 1
             GRAPHS.capture_s += time.perf_counter() - t
-        replay, word, _ = entry
+        replay, word, body = entry
         _set_word(word, s0)
         replay()
         GRAPHS.replays += 1
+        return body
 
 
 def _graphs(c: Carry) -> ChunkGraphs:

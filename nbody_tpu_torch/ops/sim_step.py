@@ -5,18 +5,25 @@ a step around one force call (ops/integrate), in float32 and binary64 and
 on the mesh; `eager_chunk_dd` does the same in double-double (precisions
 'tf3', 'ddp', 'dd+'). The JAX package compiles a chunk into one scan
 (`nbody_tpu.simulate._chunk_scan`); on one card the port runs it in a
-step kernel, one C call a chunk and one launch a step, the masses, the
-force and the update (Euler or leapfrog, with or without Kahan
-compensation) in the eager loop's ops and order, so its bits are the
-eager loop's around the force kernel:
+step kernel, one C call a chunk, the masses, the force and the update
+(Euler or leapfrog, with or without Kahan compensation) in the eager
+loop's ops and order, so its bits are the eager loop's around the force
+kernel:
 
   * `sim_chunk_f64`, csrc/sim_step_f64.cu, kernel B1's force (the port of
-    `nbody_tpu.ops.pallas_forces_e64._e64_kernel` in the scan);
-  * `sim_chunk_f32`, csrc/sim_step_f32.cu, kernel B2's force (of
-    `nbody_tpu.ops.pallas_forces._accel_kernel`);
+    `nbody_tpu.ops.pallas_forces_e64._e64_kernel` in the scan), and
+    `sim_chunk_f32`, csrc/sim_step_f32.cu, kernel B2's force (of
+    `nbody_tpu.ops.pallas_forces._accel_kernel`): up to a size set in
+    each source (512 bodies in binary64, 8192 in float32) one persistent
+    cooperative launch a chunk, its blocks resident for the chunk's K
+    steps with a grid barrier between two steps (csrc/sim_step.cuh), on
+    min(row blocks, the blocks the card holds at once) blocks, or fewer
+    (`grid_cap`, which the card tests use to make each block walk many
+    row blocks); above it a pre-launch and one launch a step of the
+    kernel's row-range form on all n rows, which measured faster there;
   * `sim_chunk_dd`, csrc/sim_step_dd.cu, kernel B4's force (of the scan
     around `nbody_tpu.ops.forces.pairwise_accel_tf3`), without
-    compensation.
+    compensation: a pre-launch and one launch a step.
 
 On a CUDA carry each launches its kernel or raises; a CPU carry goes to
 its plain version (`sim_chunk_f64_ref`, `sim_chunk_f32_ref`,
@@ -51,6 +58,7 @@ loop's on every mesh shape (in float32 at one tile).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
@@ -266,22 +274,24 @@ def _pair(c: SimCarry, rows: int, graphs) -> torch.Tensor:
     return st
 
 
-def _run(c: SimCarry, s0: int, graphs, rows: int, key: tuple,
-         body) -> None:
+def _run(c: SimCarry, s0: int, graphs, rows: int, key: tuple, body):
     """One chunk of a step kernel on a CUDA carry: body(st, word)() runs
     the chunk's launches on the pair st (`_pair`), reading the base step
     from the device word, and leaves the result in st[0]. Without graphs
     it runs once, the base step in a fresh word; with graphs, one replay
     of the graph of `key` and the pair, captured at the first chunk of
-    that key. The carry is then read from st[0]."""
+    that key. The carry is then read from st[0]. Returns the body that
+    ran, or that the replayed graph captured."""
     st = _pair(c, rows, graphs)
     if graphs is None:
-        body(st, torch.full((1,), s0, dtype=torch.int32,
-                            device=c.q.device))()
+        run = body(st, torch.full((1,), s0, dtype=torch.int32,
+                                  device=c.q.device))
+        run()
     else:
-        graphs.run(key + (c.q.device, st.data_ptr()),
-                   lambda word: body(st, word), c.q.device, s0)
+        run = graphs.run(key + (c.q.device, st.data_ptr()),
+                         lambda word: body(st, word), c.q.device, s0)
     _read(c, st[0, :, :c.q.shape[0]])
+    return run
 
 
 def _check_rc(wrapper, rc: int) -> None:
@@ -293,9 +303,11 @@ def _check_rc(wrapper, rc: int) -> None:
 def _launch(wrapper, c: SimCarry, s0: int, s1: int, graphs, name: str,
             args: tuple) -> None:
     """A step kernel's chunk on a CUDA carry through the library's C call
-    `name`(st0, st1, *args, word, K, stream) (the kernel's
-    sim_chunk_*_launch, which returns its CUDA error), and the launches
-    added to `wrapper.launches`."""
+    `name`(st0, st1, *args, word, K, launched, stream) (the kernel's
+    sim_chunk_*_launch, which returns its CUDA error and writes the
+    kernels it launched into the host int at `launched`: one persistent
+    launch, or the pre-launch and one a step), and those launches added
+    to `wrapper.launches`."""
     lib = _lib()
     with torch.cuda.device(c.q.device):
         _chunk(wrapper, c, s0, s1, graphs, name, args, lib)
@@ -304,26 +316,30 @@ def _launch(wrapper, c: SimCarry, s0: int, s1: int, graphs, name: str,
 def _chunk(wrapper, c: SimCarry, s0: int, s1: int, graphs, name: str,
            args: tuple, lib) -> None:
     """`_launch`'s chunk with the kernel library `lib` (a stand-in in the
-    CPU tests): one C call (K step launches and the pre-launch) and, for
-    an odd K, the copy of the carry's slots back from the second buffer.
-    The key of its graph is the call's arguments but the buffers', which
-    `_run` adds: everything that decides the captured work."""
+    CPU tests): one C call and, for an odd K, the copy of the carry's
+    slots back from the second buffer; a replay counts the launches its
+    graph captured. The key of its graph is the call's arguments but the
+    buffers', which `_run` adds: everything that decides the captured
+    work."""
     K = s1 - s0
     launch = getattr(lib, name)
     top = 1 + max(i for i, x in enumerate(_state(c)) if x is not None)
 
     def body(st, word):
         ptrs = (st[0].data_ptr(), st[1].data_ptr())
+        launched = ctypes.c_int(0)
 
         def run() -> None:
             _check_rc(wrapper, launch(*ptrs, *args, word.data_ptr(), K,
+                                      ctypes.addressof(launched),
                                       _stream(st)))
             if K % 2:
                 st[0, :top].copy_(st[1, :top])
+        run.launched = launched
         return run
 
-    _run(c, s0, graphs, c.q.shape[0], ("chunk", name, args, K), body)
-    wrapper.launches += K + 1
+    run = _run(c, s0, graphs, c.q.shape[0], ("chunk", name, args, K), body)
+    wrapper.launches += run.launched.value
 
 
 def _read(c: SimCarry, out: torch.Tensor) -> None:
@@ -354,23 +370,32 @@ def sim_chunk_f64_ref(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
                 dist3_mode=dist3_mode, force=force)
 
 
+def _check_grid_cap(grid_cap: int) -> None:
+    if not isinstance(grid_cap, int) or grid_cap < 0:
+        raise ValueError(f"grid_cap is a block count >= 0 (0: no cap), got "
+                         f"{grid_cap!r}")
+
+
 def sim_chunk_f64(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
                   fst: torch.Tensor, s0: int, s1: int, *, G: float,
                   eps: float, dt: float, integrator: str, compensated: bool,
                   dist3_mode: str = "dsqrt",
-                  graphs: Optional[ChunkGraphs] = None) -> None:
+                  graphs: Optional[ChunkGraphs] = None,
+                  grid_cap: int = 0) -> None:
     """Steps s0+1..s1 of simulate's binary64 loop on the carry c (q, v (n,
     3) float64; a for the leapfrog, qc and vc with compensation), in place,
     under m_eff = m0 + m_half * fst[s] (fst the oscillation table (steps +
     1,) as a float64 tensor).
 
-    A CUDA carry runs the step kernel: one C call, s1 - s0 step launches
-    and one launch that forms the chunk's first inputs, all added to
-    `sim_chunk_f64.launches`; with `graphs`, as one replay of the graph of
-    the chunk's shape (module docstring). A CPU carry runs
+    A CUDA carry runs the step kernel: one C call, and one persistent
+    launch for the chunk's s1 - s0 steps (on at most `grid_cap` blocks if
+    it is not 0) or, at a larger n, a pre-launch and one launch a step,
+    added to `sim_chunk_f64.launches`; with `graphs`, as one replay of the
+    graph of the chunk's shape (module docstring). A CPU carry runs
     `sim_chunk_f64_ref`."""
     _check(_F64, c, m0, m_half, fst, s0, s1, integrator, compensated)
     _check_dist3(dist3_mode)
+    _check_grid_cap(grid_cap)
     if _on_cpu(c, "sim_chunk_f64"):
         sim_chunk_f64_ref(c, m0, m_half, fst, s0, s1, G=G, eps=eps, dt=dt,
                           integrator=integrator, compensated=compensated,
@@ -379,7 +404,7 @@ def sim_chunk_f64(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
     _launch(sim_chunk_f64, c, s0, s1, graphs, "sim_chunk_f64_launch",
             (m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(), c.q.shape[0],
              INTEGRATORS.index(integrator), int(compensated),
-             DIST3_CODES[dist3_mode], G, dt, 0.5 * dt, eps * eps))
+             DIST3_CODES[dist3_mode], G, dt, 0.5 * dt, eps * eps, grid_cap))
 
 
 sim_chunk_f64.launches = 0
@@ -405,18 +430,21 @@ def sim_chunk_f32(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
                   fst: torch.Tensor, s0: int, s1: int, *, G: float,
                   eps: float, dt: float, integrator: str,
                   compensated: bool,
-                  graphs: Optional[ChunkGraphs] = None) -> None:
+                  graphs: Optional[ChunkGraphs] = None,
+                  grid_cap: int = 0) -> None:
     """Steps s0+1..s1 of simulate's float32 loop on the carry c (q, v (n,
     3) float32; a for the leapfrog, qc and vc with compensation), in place,
     under m_eff = m0 + m_half * fst[s] (fst the oscillation table (steps +
     1,) as a float32 tensor); G, dt, dt / 2 and eps^2 rounded to float32
     as the eager loop rounds them.
 
-    A CUDA carry runs the step kernel: one C call, s1 - s0 step launches
-    and one launch that forms the chunk's first inputs, all added to
-    `sim_chunk_f32.launches`; with `graphs`, as one replay of the graph of
-    the chunk's shape. A CPU carry runs `sim_chunk_f32_ref`."""
+    A CUDA carry runs the step kernel: one C call, and one persistent
+    launch for the chunk's s1 - s0 steps (on at most `grid_cap` blocks if
+    it is not 0) or, at a larger n, a pre-launch and one launch a step,
+    added to `sim_chunk_f32.launches`; with `graphs`, as one replay of the
+    graph of the chunk's shape. A CPU carry runs `sim_chunk_f32_ref`."""
     _check(_F32, c, m0, m_half, fst, s0, s1, integrator, compensated)
+    _check_grid_cap(grid_cap)
     if _on_cpu(c, "sim_chunk_f32"):
         sim_chunk_f32_ref(c, m0, m_half, fst, s0, s1, G=G, eps=eps, dt=dt,
                           integrator=integrator, compensated=compensated)
@@ -426,7 +454,7 @@ def sim_chunk_f32(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
             (m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(), c.q.shape[0],
              INTEGRATORS.index(integrator), int(compensated),
              scalar(G, f32), scalar(dt, f32), scalar(0.5 * dt, f32),
-             eps2_f32(eps)))
+             eps2_f32(eps), grid_cap))
 
 
 sim_chunk_f32.launches = 0

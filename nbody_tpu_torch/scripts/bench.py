@@ -13,8 +13,9 @@ BENCH_N, BENCH_STEPS and BENCH_REPEATS set the defaults, as there.
 Where the root bench runs the Pallas kernel fused with the update under one
 `lax.scan`, a run here is one C call of simulate's float32 step kernel
 (`ops/sim_step.sim_chunk_f32`, csrc/sim_step_f32.cu: kernel B2's block
-force and the Euler update, Kahan compensation off, one launch a step and
-one that forms the first step's inputs). The masses are the gm above with
+force and the Euler update, Kahan compensation off: at the bench's n one
+launch a step and one that forms the first step's inputs, up to 8192
+bodies one persistent launch a run). The masses are the gm above with
 G = 1 and no oscillating devices, so the kernel's gm is the root bench's
 bit for bit. Each timed run is bracketed by `torch.cuda.synchronize()`
 and timed on the wall clock.

@@ -130,6 +130,32 @@ def count_fp64(sass: str) -> dict:
     return out
 
 
+def global_loads(sass: str, name_part: str) -> dict:
+    """By function of a `cuobjdump -sass` listing whose (mangled) name
+    holds `name_part`: its global loads (`ldg`, opcodes LDG*), those of
+    them through the non-coherent path (`constant`, a .CONSTANT suffix:
+    ld.global.nc, which may return a value older than another block's
+    write in the same launch), and its cp.async copies (`ldgsts`)."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = _FUNCTION.match(line)
+        if m:
+            name = m.group(1) if name_part in m.group(1) else None
+            if name is not None:
+                out[name] = {"ldg": 0, "constant": 0, "ldgsts": 0}
+            continue
+        m = _INSTR.search(line)
+        if name is None or not m:
+            continue
+        op = m.group(2)
+        if op.startswith("LDGSTS"):
+            out[name]["ldgsts"] += 1
+        elif op.startswith("LDG"):
+            out[name]["ldg"] += 1
+            out[name]["constant"] += ".CONSTANT" in op
+    return out
+
+
 def _tool(name: str) -> str:
     path = os.path.join(os.path.dirname(_build._nvcc()), name)
     if os.path.exists(path):
@@ -154,6 +180,12 @@ def sass_of_probes() -> str:
         return subprocess.run([_tool("cuobjdump"), "-sass", cubin],
                               check=True, capture_output=True,
                               text=True).stdout
+
+
+def sass_of_library(path: str) -> str:
+    """A built kernel library (ops/_build.LIB_PATH), disassembled."""
+    return subprocess.run([_tool("cuobjdump"), "-sass", path], check=True,
+                          capture_output=True, text=True).stdout
 
 
 def main() -> int:

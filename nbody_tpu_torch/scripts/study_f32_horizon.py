@@ -8,10 +8,11 @@ The port of the root `scripts/study_f32_horizon.py`, the study behind
 simulate's `compensated` default. It marches a scene through the port's
 `simulate` three times: 'dd' as the truth (native binary64 in the port,
 the simulate step kernel csrc/sim_step_f64.cu on the card), 'f32' without
-and with Kahan compensation (csrc/sim_step_f32.cu), one step-kernel
-launch a step on the card. At a ladder of 20 horizons (every `steps // 20`
-steps, where `on_chunk` reads the state back) it takes the relative RMS
-position error of each float32 run against the truth.
+and with Kahan compensation (csrc/sim_step_f32.cu), at the study's n
+one persistent step-kernel launch a chunk on the card. At a ladder of 20
+horizons (every `steps // 20` steps, where `on_chunk` reads the state
+back) it takes the relative RMS position error of each float32 run
+against the truth.
 
 The scene is `<case>.in` of `--testcases` (default $NBODY_TESTCASES, else
 `testcases`) or the file `--in`; the graded testcases are not in the repo,

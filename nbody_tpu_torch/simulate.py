@@ -11,8 +11,9 @@ precision:
 The port of `nbody_tpu.simulate.simulate`, on one device or over a mesh of
 ranks (`mesh`). On one device a chunk goes to the step kernel's wrapper
 of its precision (ops/sim_step: `sim_chunk_f32`, `sim_chunk_f64`,
-`sim_chunk_dd`): on a card one launch a step, as the JAX package compiles
-a chunk into one scan; on the CPU its plain version. On the mesh every
+`sim_chunk_dd`): on a card one persistent launch a chunk (binary64 up to
+512 bodies, float32 up to 8192) or one launch a step, as the JAX package
+compiles a chunk into one scan; on the CPU its plain version. On the mesh every
 rank holds the whole state and a chunk goes to the row-range form of the
 same step kernel (ops/sim_step: `sim_rows_chunk_f32`,
 `sim_rows_chunk_f64`, `sim_rows_chunk_dd`): a step is one launch on the

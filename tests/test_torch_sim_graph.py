@@ -83,32 +83,47 @@ def _view(ptr, shape: tuple, dtype) -> torch.Tensor:
 class FakeLib(W.FakeSimLib):
     """A stand-in for the kernel library's simulate entry points on CPU
     tensors (module docstring); `chunks` records each chunk call as (s0,
-    K, st0, st1)."""
+    K, st0, st1), `grid_caps` the persistent chunks' grid caps (binary64
+    and float32) call by call. A chunk call writes the launches it stands
+    for into the host int at `launched`, as the library's does."""
+
+    # the largest n whose binary64 or float32 chunk call stands for one
+    # persistent launch; above it, and in double-double, the pre-launch
+    # and one a step
+    persistent_max_n = 1 << 30
 
     def __init__(self, eps: float):
         super().__init__(eps)
         self.chunks = []
+        self.grid_caps = []
 
     def sim_chunk_f64_launch(self, st0, st1, m0, mh, fst, n, integ, comp,
-                             dist3, G, dt, kick, eps2, word, K, stream):
+                             dist3, G, dt, kick, eps2, grid_cap, word, K,
+                             launched, stream):
+        self.grid_caps.append(grid_cap)
         return self._chunk("f64", st0, st1, m0, mh, fst, n, integ, comp,
                            {"G": G, "dt": dt, "dist3_mode": _DIST3[dist3]},
-                           word, K)
+                           word, K, launched)
 
     def sim_chunk_f32_launch(self, st0, st1, m0, mh, fst, n, integ, comp,
-                             G, dt, kick, eps2, word, K, stream):
+                             G, dt, kick, eps2, grid_cap, word, K, launched,
+                             stream):
+        self.grid_caps.append(grid_cap)
         return self._chunk("f32", st0, st1, m0, mh, fst, n, integ, comp,
-                           {"G": G, "dt": dt}, word, K)
+                           {"G": G, "dt": dt}, word, K, launched)
 
     def sim_chunk_dd_launch(self, st0, st1, m0, mh, fst, n, integ, G, dt,
-                            kick, eps2_hi, eps2_lo, word, K, stream):
+                            kick, eps2_hi, eps2_lo, word, K, launched,
+                            stream):
         return self._chunk("tf3", st0, st1, m0, mh, fst, n, integ, None,
-                           {"G": G, "dt": dt}, word, K)
+                           {"G": G, "dt": dt}, word, K, launched)
 
     def _chunk(self, precision, st0, st1, m0p, mhp, fstp, n, integ, comp,
-               kw, word, K):
+               kw, word, K, launched):
         s0 = int(_view(word, (1,), torch.int32)[0])
         self.chunks.append((s0, K, st0, st1))
+        ctypes.c_int.from_address(launched).value = \
+            1 if precision != "tf3" and n <= self.persistent_max_n else K + 1
         dtype = torch.float32 if precision == "f32" else torch.float64
         tail = (2,) if precision == "tf3" else ()
         bufs = [_view(p, (ss.SLOTS, n, 3) + tail, dtype) for p in (st0, st1)]
@@ -182,7 +197,8 @@ def test_chunks_in_fixed_slots_bitwise_plain(monkeypatch, precision,
     tensors are views of its own slots at fixed addresses after every
     chunk (an odd K's result copied back from the second buffer), bitwise
     the plain chunks, with one capture, three replays, every chunk call
-    on the carry's pair and K + 1 launches a replay."""
+    on the carry's pair and the launches of a replay: one persistent
+    launch (binary64, float32) or K and the pre-launch (double-double)."""
     c, m0, m_half, fst, kw, lib = _setup(monkeypatch, precision, integrator,
                                          compensated)
     capture, fn = StandIn(), _ONE[precision]
@@ -200,7 +216,8 @@ def test_chunks_in_fixed_slots_bitwise_plain(monkeypatch, precision,
     assert lib.chunks == [(s0, K) + pair for s0, _ in chunks]
     assert len(capture.bodies) == 1 and len(graphs.entries) == 1
     assert _counts() == (before[0] + 3, before[1] + 1)
-    assert fn.launches - launches == 3 * (K + 1)
+    assert fn.launches - launches == 3 * (1 if precision != "tf3" else
+                                         K + 1)
 
 
 def test_tail_chunk_captures_anew(monkeypatch):
@@ -255,7 +272,7 @@ def test_direct_call_without_graphs(monkeypatch):
     for s0, s1 in [(0, 5), (5, 10)]:
         ss.sim_chunk_f32(c, m0, m_half, fst, s0, s1, **kw)
     assert _counts() == before and c.slots is None
-    assert ss.sim_chunk_f32.launches - launches == 12
+    assert ss.sim_chunk_f32.launches - launches == 2
     assert [call[:2] for call in lib.chunks] == [(0, 5), (5, 5)]
     R._equal(c, _plain("f32", "leapfrog", True, [(0, 10)]))
 

@@ -426,7 +426,9 @@ def test_kernel_bitwise_equal_to_ref_and_eager_b2_on_card(
             ss.sim_chunk_f32_ref(want, m0, m_half, fst, s0, s1, **kw)
         ss.eager_chunk(eager, m0, m_half, fst.tolist(), s0, s1, **kw)
     torch.cuda.synchronize()
-    assert ss.sim_chunk_f32.launches == before + 7 + 3
+    # three chunks: one persistent launch each up to 8192 bodies, above
+    # it the pre-launch and one a step (7 steps)
+    assert ss.sim_chunk_f32.launches == before + (3 if n <= 8192 else 7 + 3)
     _equal(got, eager)
     if n <= 1000:
         _equal(got, want)
