@@ -13,9 +13,9 @@ and rank 0 alone writes the `.out` and the `--stats` line.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
-import time
 
 from .config import PRECISIONS
 
@@ -141,7 +141,8 @@ def main(argv=None) -> int:
 
 
 def _solve(args, cfg, device, mesh) -> int:
-    """Read, solve and write (rank 0 alone on a mesh)."""
+    """Read, solve and write (rank 0 alone on a mesh): one request of the
+    span recorder (utils/profiling), whose record `--stats` prints."""
     import torch
     import torch.distributed as dist
 
@@ -154,35 +155,34 @@ def _solve(args, cfg, device, mesh) -> int:
         graded_step_f64
     from .ops.sim_step import sim_chunk_dd, sim_chunk_f32, sim_chunk_f64, \
         sim_rows_chunk_dd, sim_rows_chunk_f32, sim_rows_chunk_f64
-    from .utils.profiling import PhaseTimers, pair_interactions
+    from .utils import profiling
 
-    timers = PhaseTimers(device)
     kernels = (accel_f64, accel_f32, accel_dd, graded_step_f64,
                graded_step_f32, graded_step_dd, sim_chunk_f64, sim_chunk_f32,
                sim_chunk_dd, sim_rows_chunk_f64, sim_rows_chunk_f32,
                sim_rows_chunk_dd)
     launches0 = [k.launches for k in kernels]
     graphs0 = (GRAPHS.replays, GRAPHS.captures, GRAPHS.capture_s)
-    t0 = time.perf_counter()
-    with timers.phase("read_input"):
-        scene = read_input(args.input)
-    ans = solve_scene(scene, cfg, precision=args.precision,
-                      device=args.device, timers=timers,
-                      checkpoint_path=args.checkpoint, mesh=mesh,
-                      tile=args.tile)
     rank0 = mesh is None or dist.get_rank() == 0
-    if rank0:
-        with timers.phase("write_output"):
-            write_output(args.output, *ans.as_tuple())
-    elapsed = time.perf_counter() - t0
+    with profiling.entry("solve") as req:
+        with profiling.span("read_input"):
+            scene = read_input(args.input)
+        ans = solve_scene(scene, cfg, precision=args.precision,
+                          device=args.device,
+                          checkpoint_path=args.checkpoint, mesh=mesh,
+                          tile=args.tile)
+        if rank0:
+            with profiling.span("write_output"):
+                write_output(args.output, *ans.as_tuple())
 
     if args.stats and rank0:
         mesh_stats = {} if mesh is None else {
             "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
             "tile": args.tile}
-        n_sims = 2 + (scene.device_cnt if ans.hit_time_step != -2 else 0)
-        pairs = pair_interactions(scene.n, cfg.n_steps, n_sims)
-        timers.report(stream=sys.stderr, **{
+        rec = req.record
+        # the pairs the drivers computed: n² a row-step of this process
+        pairs = scene.n * scene.n * sum(rec["row_steps"].values())
+        print(json.dumps({
             "n": scene.n, "device_cnt": scene.device_cnt,
             "n_steps": cfg.n_steps, "precision": args.precision,
             **mesh_stats,
@@ -190,9 +190,8 @@ def _solve(args, cfg, device, mesh) -> int:
             "device": (torch.cuda.get_device_name(device)
                        if device is not None and device.type == "cuda"
                        else "cpu"),
-            "wall_s": elapsed,
-            "pair_interactions": pairs,
-            "pairs_per_sec": pairs / elapsed,
+            **rec,
+            "pairs": pairs, "pairs_per_sec": pairs / rec["wall_s"],
             **{f"{k.__name__}_launches": k.launches - k0
                for k, k0 in zip(kernels, launches0)},
             # the graded chunks' CUDA graphs: a replay a chunk, a capture
@@ -204,7 +203,7 @@ def _solve(args, cfg, device, mesh) -> int:
                         "hit_time_step": ans.hit_time_step,
                         "gravity_device_id": ans.gravity_device_id,
                         "missile_cost": ans.missile_cost},
-        })
+        }), file=sys.stderr, flush=True)
     return 0
 
 

@@ -21,7 +21,7 @@ from .models.direct_sum import DD, run_problem_3, run_problems_12, \
     run_problems_123
 from .ops.forces import check_dist3
 from .physics import missile_cost_for_arrival, oscillation_table
-from .utils.profiling import PhaseTimers
+from .utils import profiling
 from .utils.rescale import IDENTITY, compute_rescale
 
 # at most this many bodies, the fused solver walks the horizon once for all
@@ -59,9 +59,9 @@ def select_winner(scene: Scene, arrivals: np.ndarray, saved: np.ndarray,
     return best
 
 
+@profiling.entry("solve_scene")
 def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
                 precision: str = "f64", device: str = "cuda",
-                timers: PhaseTimers | None = None,
                 checkpoint_path: str | None = None, mesh=None,
                 tile: int | None = None) -> Answers:
     """Answer all three problems for a scene.
@@ -105,6 +105,8 @@ def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
     bitwise the same on every shape for one `tile` (default 128, at which
     they are the one-device ones). Not for 'exact'.
     tile: the float32 mesh's force tile; only with a mesh.
+    With no entry open (the CLI's), the call is a request of its own
+    (utils/profiling.entry); its phases and chunks are spans.
     """
     if mesh is None and tile is not None:
         raise ValueError("tile sets the mesh's float32 force tile; it "
@@ -140,19 +142,16 @@ def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
 
         ans, _ = solve_scene_sharded(run_scene, run_cfg, mesh, dtype=dtype,
                                      tile=tile,
-                                     checkpoint_path=checkpoint_path,
-                                     timers=timers)
+                                     checkpoint_path=checkpoint_path)
         return Answers(rescale.unscale_length(ans.min_dist),
                        ans.hit_time_step, ans.gravity_device_id,
                        ans.missile_cost)
     dev = resolve_device(device)
-    if timers is None:
-        timers = PhaseTimers(dev)
 
-    with timers.phase("oscillation_table"):
+    with profiling.span("oscillation_table"):
         fst = oscillation_table(cfg)
     if scene.device_cnt > 0 and scene.n <= FUSED_MAX_N:
-        with timers.phase("problems_fused"):
+        with profiling.span("problems_fused"):
             p123 = run_problems_123(run_scene, fst, run_cfg, device=dev,
                                     dtype=dtype,
                                     checkpoint_path=checkpoint_path)
@@ -162,12 +161,12 @@ def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
         return Answers(rescale.unscale_length(p123.min_dist),
                        p123.hit_time_step, *winner)
 
-    with timers.phase("problem_1_2"):
+    with profiling.span("problem_1_2"):
         p12 = run_problems_12(run_scene, fst, run_cfg, device=dev,
                               dtype=dtype, checkpoint_path=checkpoint_path)
     winner = (-1, 0.0)
     if p12.hit_time_step != -2 and scene.device_cnt > 0:
-        with timers.phase("problem_3"):
+        with profiling.span("problem_3"):
             saved = run_problem_3(run_scene, p12, fst, run_cfg, device=dev,
                                   dtype=dtype,
                                   checkpoint_path=checkpoint_path)

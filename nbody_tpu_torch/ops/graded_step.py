@@ -61,6 +61,7 @@ from typing import Callable
 
 import torch
 
+from ..utils import profiling
 from . import ddfloat as ddf
 from .accel_dd import accel_dd, eps2_dd
 from .accel_f32 import TILE_J, accel_f32, accel_f32_ordered, eps2_f32
@@ -70,6 +71,7 @@ from .integrate import scalar, symplectic_euler_step, \
     symplectic_euler_step_dd
 
 P12, P3, P123 = 0, 1, 2
+DRIVERS = {P12: "p12", P3: "p3", P123: "p123"}     # the chunk spans' names
 _MAX_B = 65535          # the grid's y limit, which the batch rides
 
 
@@ -429,13 +431,15 @@ class ChunkGraphs:
             s0: int) -> Callable:
         """Replay the graph of `key` for the chunk from step s0, first
         capturing build(word)(), the chunk's launches reading their base
-        step from `word`, if there is none; returns the captured body."""
+        step from `word`, if there is none (inside a request, a capture
+        span: utils/profiling.capture); returns the captured body."""
         entry = self.entries.get(key)
         if entry is None:
             t = time.perf_counter()
-            word = torch.zeros(1, dtype=torch.int32, device=device)
-            body = build(word)
-            entry = self.entries[key] = (self.capture(body), word, body)
+            with profiling.capture():
+                word = torch.zeros(1, dtype=torch.int32, device=device)
+                body = build(word)
+                entry = self.entries[key] = (self.capture(body), word, body)
             GRAPHS.captures += 1
             GRAPHS.capture_s += time.perf_counter() - t
         replay, word, body = entry
@@ -746,7 +750,9 @@ def graded_rows_chunk(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
     rows, the chunk as one replay of a CUDA graph that holds the gathers
     too (`ChunkGraphs`), and add its launches to
     `graded_step_f64.launches`, `graded_step_f32.launches` or
-    `graded_step_dd.launches`; CPU tensors run the plain version."""
+    `graded_step_dd.launches`; CPU tensors run the plain version. Inside a
+    request the chunk is a span (utils/profiling.chunk) of the carry's B
+    rows."""
     B = c.q.shape[2] if c.q.dim() > 2 else 0
     if mode == P12 and roles is None:
         roles = (0, 1 if B == 2 else None)
@@ -774,12 +780,14 @@ def graded_rows_chunk(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
             or not all(r is None or 0 <= r < B for r in roles):
         raise ValueError(f"P12 roles name the carry's {B} rows, got {roles}")
     _check(mode, c, s0, s1, blocks)
-    if c.q.device.type == "cpu":
-        _rows_ref(mode, c, s0, s1, blocks, gather, roles, tile)
-        return
-    fn = graded_step_dd if is_dd(c.q) else \
-        graded_step_f32 if c.q.dtype == torch.float32 else graded_step_f64
-    _launch_rows(fn, mode, c, s0, s1, blocks, gather, roles, tile)
+    with profiling.chunk(DRIVERS[mode], B, s1 - s0, c.q.device):
+        if c.q.device.type == "cpu":
+            _rows_ref(mode, c, s0, s1, blocks, gather, roles, tile)
+            return
+        fn = graded_step_dd if is_dd(c.q) else \
+            graded_step_f32 if c.q.dtype == torch.float32 else \
+            graded_step_f64
+        _launch_rows(fn, mode, c, s0, s1, blocks, gather, roles, tile)
 
 
 def graded_chunk(mode: int, c: Carry, s0: int, s1: int) -> None:
@@ -787,13 +795,15 @@ def graded_chunk(mode: int, c: Carry, s0: int, s1: int) -> None:
     P3 or P123). CUDA tensors run the graded step kernel of their
     representation, the chunk as one replay of a CUDA graph
     (`ChunkGraphs`; c.q, c.v and c.arr hold the result where they lie);
-    CPU tensors run the plain chunk."""
+    CPU tensors run the plain chunk. Inside a request the chunk is a span
+    (utils/profiling.chunk) of c.q's rows."""
     _check(mode, c, s0, s1)
-    if c.q.device.type == "cpu":
-        _REF[mode](c, s0, s1)
-    elif is_dd(c.q):
-        graded_step_dd(mode, c, s0, s1)
-    elif c.q.dtype == torch.float64:
-        graded_step_f64(mode, c, s0, s1)
-    else:
-        graded_step_f32(mode, c, s0, s1)
+    with profiling.chunk(DRIVERS[mode], c.q.shape[0], s1 - s0, c.q.device):
+        if c.q.device.type == "cpu":
+            _REF[mode](c, s0, s1)
+        elif is_dd(c.q):
+            graded_step_dd(mode, c, s0, s1)
+        elif c.q.dtype == torch.float64:
+            graded_step_f64(mode, c, s0, s1)
+        else:
+            graded_step_f32(mode, c, s0, s1)

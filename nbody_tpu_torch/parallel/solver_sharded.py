@@ -292,23 +292,24 @@ def run_problem_3_sharded(scene: Scene, p12: ds.P12Result, fst: np.ndarray,
 
 def solve_scene_sharded(scene: Scene, cfg: SimConfig, mesh, *,
                         dtype=ds.F64, tile: int | None = None,
-                        checkpoint_path: str | None = None, timers=None):
+                        checkpoint_path: str | None = None):
     """P1+P2+P3 on the mesh: (Answers, P12Result) in the units of the
     scene given (the caller rescales for 'f32', as engine.solve_scene
-    does). The phased drivers always: the mesh has no fused driver."""
+    does). The phased drivers always: the mesh has no fused driver. The
+    phases are spans of the open request (utils/profiling)."""
     from ..engine import Answers, select_winner
     from ..physics import oscillation_table
-    from ..utils.profiling import PhaseTimers
+    from ..utils import profiling
 
-    timers = timers or PhaseTimers(mesh_device(mesh))
-    fst = oscillation_table(cfg)
-    with timers.phase("problem_1_2"):
+    with profiling.span("oscillation_table"):
+        fst = oscillation_table(cfg)
+    with profiling.span("problem_1_2"):
         p12 = run_problems_12_sharded(scene, fst, cfg, mesh, dtype=dtype,
                                       tile=tile,
                                       checkpoint_path=checkpoint_path)
     winner = (-1, 0.0)
     if p12.hit_time_step != -2 and scene.device_cnt > 0:
-        with timers.phase("problem_3"):
+        with profiling.span("problem_3"):
             saved = run_problem_3_sharded(scene, p12, fst, cfg, mesh,
                                           dtype=dtype, tile=tile,
                                           checkpoint_path=checkpoint_path)

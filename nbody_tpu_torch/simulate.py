@@ -50,6 +50,7 @@ from .ops.sim_step import SimCarry, m_eff_dd, rows_force, sim_chunk_dd, \
     sim_chunk_f32, sim_chunk_f64, sim_rows_chunk_dd, sim_rows_chunk_f32, \
     sim_rows_chunk_f64
 from .physics import oscillation_table
+from .utils import profiling
 from .utils.rescale import IDENTITY, compute_rescale
 
 # beyond binary64: double-double through kernel B4 (simulate() has no
@@ -74,6 +75,7 @@ class SimState:
     v_lo: Optional[np.ndarray] = None
 
 
+@profiling.entry("simulate")
 def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
              n_steps: Optional[int] = None, precision: str = "f64",
              device: str = "cuda", devices_on: bool = True,
@@ -138,6 +140,8 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
     pair it with utils.checkpoint.CheckpointPolicy); a double-double state
     is handed over rounded to binary64 (hi + lo), with the remainders in
     q_lo, v_lo.
+    The call is a request (utils/profiling.entry) whose chunks and graph
+    captures are spans.
     """
     if integrator not in ("euler", "leapfrog"):
         raise ValueError(f"unknown integrator: {integrator}")
@@ -260,12 +264,14 @@ def _march(c, n_steps: int, chunk: int, advance, host_state,
            on_chunk) -> SimState:
     """advance(s0, s1, graphs) over the run's chunks (`_plan`), graphs
     the run's ChunkGraphs (c.graphs) for a chunk whose length repeats and
-    None otherwise; on_chunk after each; the final host state."""
+    None otherwise, each a chunk span of one row; on_chunk after each; the
+    final host state."""
     plan = _plan(n_steps, chunk)
     if any(repeats for _, _, repeats in plan):
         c.graphs = ChunkGraphs()
     for s0, s1, repeats in plan:
-        advance(s0, s1, c.graphs if repeats else None)
+        with profiling.chunk("sim", 1, s1 - s0, c.q.device):
+            advance(s0, s1, c.graphs if repeats else None)
         if on_chunk is not None:
             on_chunk(host_state(s1))
     return host_state(n_steps)
