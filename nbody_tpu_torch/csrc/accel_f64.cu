@@ -78,15 +78,20 @@ accel_f64_kernel(const double* __restrict__ qi,
 }
 
 // The pair term's division (forces.cuh div_rn_with, its reciprocal made
-// once) beside __ddiv_rn on the same operands
+// once) beside __ddiv_rn on the same operands; where its `zero` form (the
+// resident chunk's) gives other bits, got is want with every bit flipped
 __global__ void __launch_bounds__(256)
 div_probe_kernel(const double* __restrict__ n, const double* __restrict__ d,
                  double* __restrict__ want, double* __restrict__ got,
                  int count) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= count) return;
-    want[i] = __ddiv_rn(n[i], d[i]);
-    got[i] = nbody::div_rn_with(n[i], d[i], nbody::rcp_for_div(d[i]));
+    const double w = __ddiv_rn(n[i], d[i]), r = nbody::rcp_for_div(d[i]);
+    const double g = nbody::div_rn_with(n[i], d[i], r);
+    const double z = nbody::div_rn_with<true>(n[i], d[i], r);
+    want[i] = w;
+    got[i] = __double_as_longlong(g) == __double_as_longlong(z)
+                 ? g : __longlong_as_double(~__double_as_longlong(w));
 }
 
 }  // namespace

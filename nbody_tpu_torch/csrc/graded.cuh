@@ -5,9 +5,11 @@
 //
 // A chunk of K steps from step s0 is K launches of a step kernel, one per
 // step t = s0 + k (k = 1 .. K, its offset in the chunk), and one launch of
-// a check kernel. A launch takes its offset by value and reads s0 from a
-// device word (GradedArgs s0), so that the loop, captured once into a CUDA
-// graph (ops/graded_step.py), serves every chunk of K steps: everything
+// a check kernel (the binary64 fused driver at small n is one launch of
+// a cluster that runs all of it: graded_step_f64.cu's resident chunk). A
+// launch takes its offset by value and reads s0 from a device word
+// (GradedArgs s0), so that the loop, captured once into a CUDA graph
+// (ops/graded_step.py), serves every chunk of K steps: everything
 // that depends on the absolute step (fst[t], md2[p], the parity of the
 // arrival buffers, the Problem-3 freeze test, the fused driver's source
 // row) is computed on the card from *s0 + k. The launch of step t writes the
@@ -313,12 +315,13 @@ bool graded_rows_args(GradedArgs<T>& a, int p1, int p2, int ni, int k,
 // (q0, v0); the result lies in (q0, v0) if K is even, else in (q1, v1).
 // No host synchronisation, and nothing here depends on s0: a capture of
 // this loop serves every chunk of K steps. `smem`: the step kernel's
-// dynamic shared memory in bytes. Returns the first launch error, or 0.
+// dynamic shared memory in bytes. Adds each launch made to *launched (a
+// host int). Returns the first launch error, or 0.
 template <typename T, typename Step, typename Check>
 int graded_chunk(Step step, Check check, dim3 grid,
                  int threads, int check_threads, const GradedArgs<T>& a,
                  T* q0, T* v0, T* q1, T* v1, int K,
-                 cudaStream_t stream, size_t smem = 0) {
+                 cudaStream_t stream, int* launched, size_t smem = 0) {
     T* q[2] = {q0, q1};
     T* v[2] = {v0, v1};
     for (int k = 1; k <= K; ++k) {
@@ -327,10 +330,13 @@ int graded_chunk(Step step, Check check, dim3 grid,
                                               v[in ^ 1], k, k > 1);
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return static_cast<int>(err);
+        ++*launched;
     }
     const int last = K & 1;
     check<<<1, check_threads, 0, stream>>>(a, q[last], v[last], K);
-    return static_cast<int>(cudaGetLastError());
+    const cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess) ++*launched;
+    return static_cast<int>(err);
 }
 
 // A mesh rank's launch of the step at offset `off` in its chunk from the

@@ -154,7 +154,7 @@ cudaError_t step_kernel(StepKernel* kernel, size_t* smem) {
 // Steps s0 + 1 .. s0 + K in geometry Geo (graded.cuh graded_chunk)
 template <class Geo>
 int chunk_dd(const GradedArgs<dd>& a, dd* q, dd* v, dd* q2, dd* v2, int K,
-             cudaStream_t stream) {
+             cudaStream_t stream, int* launched) {
     StepKernel kernel;
     size_t smem;
     const cudaError_t err = step_kernel<Geo>(&kernel, &smem);
@@ -162,7 +162,7 @@ int chunk_dd(const GradedArgs<dd>& a, dd* q, dd* v, dd* q2, dd* v2, int K,
     const dim3 grid((a.n + Geo::R - 1) / Geo::R, a.B);
     return nbody::graded_chunk(kernel, graded_check_dd_kernel, grid,
                                Geo::THREADS, CHECK_THREADS, a, q, v, q2, v2,
-                               K, stream, smem);
+                               K, stream, launched, smem);
 }
 
 // One launch of a mesh rank in geometry Geo (graded.cuh
@@ -218,9 +218,10 @@ extern "C" int graded_chunk_dd_launch(
         double* v_snap, int mode, int B, int n, int D, int planet,
         double G_hi, double G_lo, double dt_hi, double dt_lo, double eps2_hi,
         double eps2_lo, double r2_hi, double r2_lo, const int* s0, int K,
-        void* stream) {
-    if (!nbody::graded_args_ok(mode, B, n, D, s0, K))
+        int* launched, void* stream) {
+    if (!nbody::graded_args_ok(mode, B, n, D, s0, K) || launched == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
+    *launched = 0;
     auto d = [](double* p) { return reinterpret_cast<dd*>(p); };
     auto cd = [](const double* p) { return reinterpret_cast<const dd*>(p); };
     const GradedArgs<dd> a = nbody::graded_args(
@@ -230,8 +231,8 @@ extern "C" int graded_chunk_dd_launch(
         dd{r2_hi, r2_lo}, s0);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     return n <= NARROW_MAX_N
-               ? chunk_dd<Narrow>(a, d(q), d(v), d(q2), d(v2), K, s)
-               : chunk_dd<Wide>(a, d(q), d(v), d(q2), d(v2), K, s);
+               ? chunk_dd<Narrow>(a, d(q), d(v), d(q2), d(v2), K, s, launched)
+               : chunk_dd<Wide>(a, d(q), d(v), d(q2), d(v2), K, s, launched);
 }
 
 // One launch of a mesh rank in double-double: graded_rows_f64_step's

@@ -201,10 +201,11 @@ extern "C" int graded_chunk_f32_launch(
         const long long* others, long long* arr, long long* arr2,
         long long* hit, unsigned char* flag, float* min_d2, float* q_snap,
         float* v_snap, int mode, int B, int n, int D, int planet, float G,
-        float dt, float eps2, float r2, const int* s0, int K,
+        float dt, float eps2, float r2, const int* s0, int K, int* launched,
         void* stream) {
-    if (!nbody::graded_args_ok(mode, B, n, D, s0, K))
+    if (!nbody::graded_args_ok(mode, B, n, D, s0, K) || launched == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
+    *launched = 0;
     const GradedArgs<float> a = nbody::graded_args(
         m0, mh, fst, md2, others, arr, arr2, hit, flag, min_d2, q_snap,
         v_snap, mode, B, n, D, planet, G, dt, eps2, r2, s0);
@@ -212,7 +213,7 @@ extern "C" int graded_chunk_f32_launch(
     return nbody::graded_chunk(
         graded_step_f32_kernel<false, nbody::B2Tiles>,
         graded_check_f32_kernel, grid, THREADS, CHECK_THREADS, a, q, v, q2,
-        v2, K, static_cast<cudaStream_t>(stream));
+        v2, K, static_cast<cudaStream_t>(stream), launched);
 }
 
 // One launch of a mesh rank (graded.cuh graded_rows_launch), as

@@ -1,6 +1,7 @@
 // The graded step in binary64: kernel B1's force, the Euler update and the
 // graded drivers' checks, one launch per step (graded.cuh has the chunk
-// loop and the checks).
+// loop and the checks); the fused driver's chunk at small n one launch
+// (the resident chunk, below).
 //
 // Replaces, on the graded path, nbody_tpu/ops/pallas_forces_e64.py::
 // _e64_kernel together with the per-step work around it that the JAX
@@ -47,13 +48,74 @@
 // among them (forces.cuh div_rn_with). A step
 // costs them plus the launch. wgmma and TMA do not apply: there is no fp64
 // matrix product and a tile is a few KB.
+//
+// The resident chunk. Up to RESIDENT_MAX_N bodies and RES_MAX_ROWS rows,
+// where a block's part fits its shared memory, a chunk of K steps of the
+// fused driver (P123: rows P1, P2, then one a device) is one launch: a
+// thread block cluster of one block a scenario row, each keeping its
+// row's carry in shared memory (q and v in a ping-pong pair, the masses,
+// gm_j of the step: graded_gm, formed once a source and step, the bits of
+// the per-pair form) and its own copy of the decision carries (the
+// arrivals by parity, the hit, the min d2, the Problem-3 flags). A step
+// touches no global memory but the tables fst and md2, which nothing
+// writes (read a step ahead, their lines prefetched into L1 further
+// ahead), and a barrier of the cluster:
+//   terms  every (body i, source j) pair's B1 term (forces.cuh
+//          b1_pair_term, its divisions returning a zero numerator's
+//          quotient without __ddiv_rn's slow-path call: the same bits)
+//          into shared memory, G compute threads a body; beside them the
+//          check warp runs the checks of the step before (graded_check,
+//          as block (0, 0) of the launch-a-step path runs them) on the
+//          bodies they read of every row (planet, asteroid, devices),
+//          which every block sent it: all blocks make the same checks on
+//          the same bodies, so their carries agree without a collective
+//          (the mesh's design);
+//   fold   lane (body, component) adds its n terms over ascending j from
+//          +0, then the Euler update (graded_euler) into the other
+//          buffer; a checked body's lanes store their component into
+//          every block's shared memory (distributed shared memory), and
+//          the P2 row's lanes their state into the rows still pending,
+//          which read it in place of their own at the next step, as the
+//          launch-a-step path does (graded_source_row); gm_j of the next
+//          step.
+// Nothing is read from another block: what a step needs arrives by
+// stores before the cluster's barrier. That holds the blocks together
+// only while a Problem-3 row is pending (its missile has not arrived):
+// once every block has seen every arrival, the rows depend on nothing
+// but themselves, and a block stores its checked bodies into its own
+// shared memory and takes a block barrier; its checks are then right
+// for the carries its row decides (P1's min d2, P2's hit and arrivals, a
+// Problem-3 row's flag), which it alone writes back. After the last step
+// the closing checks, a pending row takes the P2 row's state, and each
+// block writes its row back once under the chunk's contract (the result
+// in (q2, v2) for an odd K), the arrivals in both buffers.
+//
+// It replaces, for the fused scan nbody_tpu/models/direct_sum.py::
+// _p123_chunk with _e64_kernel inside, K step launches and a check launch.
+// Bound: a block's fp64 pipe over its row's n^2 pairs, 40 instructions a
+// pair (at n = 20, 250 cycles, about 0.13 us), and the latency of one
+// pair's chain and of the fold's n dependent adds, where the
+// launch-a-step path pays a kernel boundary a step (about 1.1 us under a
+// graph), its loads through L2 and block (0, 0)'s checks before its rows.
+// On an "NVIDIA H100 80GB HBM3, 700.00 W" at n = 20, B = 5 a step took
+// 1.49 us against that path's 4.27 to 4.34; one block for all rows (tried
+// first) 4.07, a cluster barrier every step 1.95. The resident chunk
+// loses where a block's pair work outgrows the boundary: at n = 60 4.23
+// us against 4.94, at 64 4.89 against 4.66, so RESIDENT_MAX_N = 60
+// (chip_smoke.py phase 16; PERF.md section 6).
 
 #include <cuda_runtime.h>
+
+#include <cooperative_groups.h>
+
+#include <algorithm>
 
 #include "f64_force.cuh"
 #include "graded.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 using nbody::GradedArgs;
 using Geo = nbody::F64Block;
@@ -132,6 +194,301 @@ graded_check_f64_kernel(GradedArgs<double> a, double* q, double* v,
     nbody::graded_check(a, q, v, nbody::graded_step_at(a, off), true);
 }
 
+// The largest n whose fused chunk is one resident launch: the crossover
+// against the launch-a-step path, B = 5 (PERF.md section 6)
+constexpr int RESIDENT_MAX_N = 60;
+// a block's threads at most (512: 128 registers a thread, no spills); the
+// rows of a cluster at most (the portable cluster size)
+constexpr int RES_THREADS = 512, RES_MAX_ROWS = 8;
+
+// The resident chunk at (B, n, D): a cluster of B blocks of `threads`
+// threads (a check warp, then the compute threads), G compute threads a
+// body in the terms, `bytes` of dynamic shared memory a block; B = 0
+// where it does not run
+struct ResShape {
+    int B, n, D, groups, threads, bytes;
+};
+
+// A block's shared memory, in this order
+struct ResSmem {
+    double* q[2];          // (n, 3) each: the block's row, a ping-pong pair
+    double* v[2];
+    double* mq[2];         // (n, 3) each, by parity: the P2 row's state,
+    double* mv[2];         // which a pending row reads in place of its own
+    double* m0;            // (n,) the row's masses
+    double* mh;
+    double* gm;            // (n,): gm_j of the step
+    double* term;          // (n, 3 n): source j's terms of every body
+    double* chk[2];        // (B, n, 3) each, by parity: every row's bodies
+                           // that the checks read
+    double* min_d2;
+    long long* arr[2];     // (D,) each, by parity
+    long long* hit;
+    unsigned char* flag;   // (D,)
+};
+
+__host__ __device__ inline long long res_bytes(int B, int n, int D) {
+    const long long N = n;
+    return 8 * (27 * N + 3 * N * N + 6LL * B * N + 1) + 8 * (2LL * D + 1)
+           + D;
+}
+
+__device__ inline ResSmem res_carve(unsigned char* base,
+                                    const ResShape& sh) {
+    const long long n3 = 3LL * sh.n, c3 = sh.B * n3;
+    double* d = reinterpret_cast<double*>(base);
+    ResSmem s;
+    for (int p = 0; p < 2; ++p) {
+        s.q[p] = d + p * n3;
+        s.v[p] = d + (2 + p) * n3;
+        s.mq[p] = d + (4 + p) * n3;
+        s.mv[p] = d + (6 + p) * n3;
+    }
+    s.m0 = d + 8 * n3;
+    s.mh = s.m0 + sh.n;
+    s.gm = s.mh + sh.n;
+    s.term = s.gm + sh.n;
+    s.chk[0] = s.term + sh.n * n3;
+    s.chk[1] = s.chk[0] + c3;
+    s.min_d2 = s.chk[1] + c3;
+    long long* l = reinterpret_cast<long long*>(s.min_d2 + 1);
+    s.arr[0] = l;
+    s.arr[1] = l + sh.D;
+    s.hit = l + 2 * sh.D;
+    s.flag = reinterpret_cast<unsigned char*>(s.hit + 1);
+    return s;
+}
+
+// The resident chunk's shape at (B, n, D) on a card whose blocks may have
+// smem_max bytes of shared memory: B = 0 (the launch-a-step path) above
+// RESIDENT_MAX_N, where the rows are not P123's or more than
+// RES_MAX_ROWS, or where a block's carry and terms do not fit
+ResShape res_shape(int B, int n, int D, int smem_max) {
+    ResShape sh{};
+    if (n > RESIDENT_MAX_N || B != 2 + D || B > RES_MAX_ROWS
+        || res_bytes(B, n, D) > smem_max)
+        return sh;
+    const int work = RES_THREADS - 32;   // the compute threads at most
+    const int groups = std::max(1, std::min(work / n, n));
+    const int compute = std::min(work, (n * groups + 31) / 32 * 32);
+    if (compute < 3 * n) return sh;   // a fold lane a compute thread
+    sh.B = B;
+    sh.n = n;
+    sh.D = D;
+    sh.groups = groups;
+    sh.threads = 32 + compute;
+    sh.bytes = static_cast<int>(res_bytes(B, n, D));
+    return sh;
+}
+
+// Step t's pair terms of the block's row from the state qs (its own, or
+// the P2 row's for a pending row): compute thread ct = (group g, body i)
+// takes the sources j = g, g + G, ...
+template <int dist3>
+__device__ __forceinline__ void res_terms(const ResSmem& s,
+                                          const ResShape& sh, int ct,
+                                          int nct, const double* qs,
+                                          double eps2) {
+    const int n = sh.n, G = sh.groups, n3 = 3 * n;
+    for (int x = ct; x < n * G; x += nct) {
+        const int g = x / n, i = x - g * n;
+        const double xi = qs[3 * i], yi = qs[3 * i + 1], zi = qs[3 * i + 2];
+#pragma unroll 2
+        for (int j = g; j < n; j += G) {
+            double* tt = s.term + j * n3 + 3 * i;
+            nbody::b1_pair_term<dist3, true>(qs[3 * j], qs[3 * j + 1],
+                                             qs[3 * j + 2], s.gm[j], xi, yi,
+                                             zi, eps2, tt[0], tt[1], tt[2]);
+        }
+    }
+}
+
+// The fused driver's chunk of K steps from *a.s0 as a cluster of B blocks
+// (the resident chunk above): block b of scenario row b; the carry from
+// (q, v) and a's carries, the result into (q, v) for an even K, (q2, v2)
+// for an odd one, and a's carries
+template <int dist3>
+__global__ void __launch_bounds__(RES_THREADS, 1)
+graded_resident_f64_kernel(GradedArgs<double> a, double* q, double* v,
+                           double* q2, double* v2, int K, ResShape sh) {
+    extern __shared__ __align__(16) unsigned char res_smem[];
+    cg::cluster_group cluster = cg::this_cluster();
+    const ResSmem s = res_carve(res_smem, sh);
+    const int b = static_cast<int>(cluster.block_rank());
+    const int tid = threadIdx.x, T = blockDim.x, n = sh.n, n3 = 3 * n;
+    const int s0 = *a.s0, last = s0 + K;
+    const long long row = static_cast<long long>(b) * n3;
+    // the row's carry, gm_j of the first step, the decision carries
+    const double f1 = a.fst[s0 + 1];
+    for (int x = tid; x < n3; x += T) {
+        s.q[0][x] = q[row + x];
+        s.v[0][x] = v[row + x];
+    }
+    for (int j = tid; j < n; j += T) {
+        s.m0[j] = a.m0[b * n + j];
+        s.mh[j] = a.mh[b * n + j];
+        s.gm[j] = nbody::graded_gm(s.m0[j], s.mh[j], f1, a.G);
+    }
+    for (int k = tid; k < a.D; k += T) {
+        s.arr[0][k] = s.arr[1][k] = a.arr[0][k];
+        s.flag[k] = a.flag[k];
+    }
+    if (tid == 0) {
+        *s.hit = *a.hit;
+        *s.min_d2 = *a.min_d2;
+    }
+    // the checks' arguments, their carries this block's own copies: every
+    // block makes the same checks on the same bodies, so their carries
+    // agree without a collective (the mesh's design)
+    GradedArgs<double> c = a;
+    c.arr[0] = s.arr[0];
+    c.arr[1] = s.arr[1];
+    c.hit = s.hit;
+    c.flag = s.flag;
+    c.min_d2 = s.min_d2;
+    // compute thread ct; its fold lane (body, component) ct < 3 n, which
+    // sends its component to every block's checks if the checks read the
+    // body (the planet, the asteroid, a device); the last n form gm_j
+    const int ct = tid - 32, nct = T - 32;
+    bool sent = false;
+    if (ct >= 0 && ct < n3) {
+        sent = ct / 3 == a.planet;
+        for (int e = 0; e <= a.D; ++e) sent |= ct / 3 == a.others[e];
+    }
+    const int yg = nct - 1 - ct;
+    __syncthreads();
+    cluster.sync();   // every block has started: their shared memory is
+                      // there to be written
+    for (int k = 1; k <= K; ++k) {
+        const int t = s0 + k, in = (k - 1) & 1, par = k & 1;
+        // a Problem-3 row pending before the check of step t - 1 reads
+        // the P2 row's state of step t - 1, which that block sent
+        const bool pend = nbody::graded_source_row(c, b, t, k > 1) != b;
+        // while any row is pending the blocks step together; once none
+        // is (their arrivals were seen by every block alike), the rows
+        // are independent and each block checks its own row
+        bool lock = false;
+        for (int e = 0; e < a.D; ++e) lock |= s.arr[t & 1][e] == -2;
+        if (tid < 32) {
+            // the check warp: the checks of step t - 1 on the bodies
+            // every block sent, beside the step
+            if (k > 1) nbody::graded_check(c, s.chk[in], s.chk[in], t - 1,
+                                           false);
+        } else {
+            const double f_next = k < K && yg < n ? a.fst[t + 1] : 0.0;
+            if (ct == 0 && t + 16 <= last) {
+                asm volatile("prefetch.global.L1 [%0];" ::"l"(
+                    a.fst + t + 16));
+                asm volatile("prefetch.global.L1 [%0];" ::"l"(
+                    a.md2 + t + 16));
+            }
+            const double* qs = pend ? s.mq[in] : s.q[in];
+            const double* vs = pend ? s.mv[in] : s.v[in];
+            res_terms<dist3>(s, sh, ct, nct, qs, a.eps2);
+            nbody::f64_bar_sync(1, nct);   // the compute threads' barrier
+            if (ct < n3) {
+                double acc = 0.0;
+                const double* tt = s.term + ct;
+#pragma unroll 4
+                for (int j = 0; j < n; ++j) acc = __dadd_rn(acc, tt[j * n3]);
+                double qo, vo;
+                nbody::graded_euler(acc, qs[ct], vs[ct], a.dt, qo, vo);
+                s.q[in ^ 1][ct] = qo;
+                s.v[in ^ 1][ct] = vo;
+                if (sent && !lock) s.chk[par][row + ct] = qo;
+                if (sent && lock)
+                    for (int r = 0; r < sh.B; ++r)
+                        cluster.map_shared_rank(s.chk[par], r)[row + ct] =
+                            qo;
+                // the P2 row's state to every row pending before the
+                // check of t - 1 (those pending before the check of t
+                // among them)
+                if (b == 1)
+                    for (int r = 2; r < sh.B; ++r)
+                        if (s.arr[t & 1][r - 2] == -2) {
+                            cluster.map_shared_rank(s.mq[par], r)[ct] = qo;
+                            cluster.map_shared_rank(s.mv[par], r)[ct] = vo;
+                        }
+            }
+            if (k < K)
+                for (int j = yg; j < n; j += nct)
+                    s.gm[j] = nbody::graded_gm(s.m0[j], s.mh[j], f_next,
+                                               a.G);
+        }
+        if (lock)
+            cluster.sync();   // every row's step t is complete and sent
+        else
+            __syncthreads();
+    }
+    // the closing checks of the last step; a row pending before it takes
+    // the P2 row's last state, which that block sent
+    const int fin = K & 1;
+    const bool pend = b >= 2 && s.arr[(last + 1) & 1][b - 2] == -2;
+    __syncthreads();
+    nbody::graded_check(c, s.chk[fin], s.chk[fin], last, true);
+    double* qw = K & 1 ? q2 : q;
+    double* vw = K & 1 ? v2 : v;
+    for (int x = tid; x < n3; x += T) {
+        qw[row + x] = pend ? s.mq[fin][x] : s.q[fin][x];
+        vw[row + x] = pend ? s.mv[fin][x] : s.v[fin][x];
+    }
+    // each carry from the block of the row it reads: P1's min d2, P2's
+    // hit and arrivals, a Problem-3 row's flag
+    if (tid == 0) {
+        if (b == 0) *a.min_d2 = *s.min_d2;
+        if (b == 1) *a.hit = *s.hit;
+        if (b >= 2) a.flag[b - 2] = s.flag[b - 2];
+    }
+    if (b == 1)
+        for (int k = tid; k < a.D; k += T)
+            a.arr[0][k] = a.arr[1][k] = s.arr[0][k];
+}
+
+// The shared memory a block of this card may opt into
+cudaError_t res_smem_max(int* bytes) {
+    int dev = 0;
+    const cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    return cudaDeviceGetAttribute(bytes,
+                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+// The resident chunk's launch configuration at shape sh: one cluster of
+// sh.B blocks
+struct ResLaunch {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+
+    ResLaunch(const ResShape& sh, cudaStream_t stream) : cfg{}, attr{} {
+        cfg.gridDim = dim3(sh.B);
+        cfg.blockDim = dim3(sh.threads);
+        cfg.dynamicSmemBytes = sh.bytes;
+        cfg.stream = stream;
+        attr.id = cudaLaunchAttributeClusterDimension;
+        attr.val.clusterDim.x = sh.B;
+        attr.val.clusterDim.y = 1;
+        attr.val.clusterDim.z = 1;
+        cfg.attrs = &attr;
+        cfg.numAttrs = 1;
+    }
+};
+
+// One launch of the resident chunk at shape sh; adds it to *launched
+template <int dist3>
+int res_launch(const GradedArgs<double>& a, double* q, double* v,
+               double* q2, double* v2, int K, const ResShape& sh,
+               cudaStream_t stream, int* launched) {
+    const auto kernel = graded_resident_f64_kernel<dist3>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sh.bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ResLaunch l(sh, stream);
+    err = cudaLaunchKernelEx(&l.cfg, kernel, a, q, v, q2, v2, K, sh);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err == cudaSuccess) ++*launched;
+    return static_cast<int>(err);
+}
+
 // One warp folds n <= 1024 values from shared memory, reps times over, in
 // one chain of dependent adds per lane: the latency floor of kernel B1's
 // fold (n adds a row component), timed on the card's global timer.
@@ -160,8 +517,11 @@ fold_floor_f64_kernel(const double* __restrict__ x, double* __restrict__ out,
 // v2). arr2 is the second arrival buffer (see graded.cuh), equal to arr on
 // entry; the arrivals of step s0 + K lie in both on return. Pointers a
 // mode does not use may be null. dist3: 1 dsqrt, 2 sqrt3 (native/core.cc's
-// numbers). Returns the first launch error, or cudaErrorInvalidValue
-// without launching.
+// numbers). The fused driver (P123) at n <= RESIDENT_MAX_N, where its
+// carry fits a block's shared memory, is one launch of the resident chunk;
+// everything else K step launches and a check launch. *launched (a host
+// int) is set to the launches made. Returns the first launch error, or
+// cudaErrorInvalidValue without launching.
 extern "C" int graded_chunk_f64_launch(
         double* q, double* v, double* q2, double* v2, const double* m0,
         const double* mh, const double* fst, const double* md2,
@@ -169,24 +529,66 @@ extern "C" int graded_chunk_f64_launch(
         long long* hit, unsigned char* flag, double* min_d2, double* q_snap,
         double* v_snap, int mode, int B, int n, int D, int planet, int dist3,
         double G, double dt, double eps2, double r2, const int* s0, int K,
-        void* stream) {
-    if (!nbody::graded_args_ok(mode, B, n, D, s0, K)
+        int* launched, void* stream) {
+    if (!nbody::graded_args_ok(mode, B, n, D, s0, K) || launched == nullptr
         || (dist3 != nbody::DIST3_DSQRT && dist3 != nbody::DIST3_SQRT3))
         return static_cast<int>(cudaErrorInvalidValue);
+    *launched = 0;
     const GradedArgs<double> a = nbody::graded_args(
         m0, mh, fst, md2, others, arr, arr2, hit, flag, min_d2, q_snap,
         v_snap, mode, B, n, D, planet, G, dt, eps2, r2, s0);
-    const dim3 grid((n + Geo::R - 1) / Geo::R, B);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dist3 == nbody::DIST3_DSQRT)
+    const bool dsqrt = dist3 == nbody::DIST3_DSQRT;
+    if (mode == nbody::MODE_P123) {
+        int smem_max = 0;
+        const cudaError_t err = res_smem_max(&smem_max);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        const ResShape sh = res_shape(B, n, D, smem_max);
+        if (sh.B > 0)
+            return dsqrt ? res_launch<nbody::DIST3_DSQRT>(a, q, v, q2, v2, K,
+                                                          sh, s, launched)
+                         : res_launch<nbody::DIST3_SQRT3>(a, q, v, q2, v2, K,
+                                                          sh, s, launched);
+    }
+    const dim3 grid((n + Geo::R - 1) / Geo::R, B);
+    if (dsqrt)
         return nbody::graded_chunk(
             graded_step_f64_kernel<nbody::DIST3_DSQRT, false>,
             graded_check_f64_kernel, grid, Geo::THREADS, CHECK_THREADS, a,
-            q, v, q2, v2, K, s);
+            q, v, q2, v2, K, s, launched);
     return nbody::graded_chunk(
         graded_step_f64_kernel<nbody::DIST3_SQRT3, false>,
         graded_check_f64_kernel, grid, Geo::THREADS, CHECK_THREADS, a, q, v,
-        q2, v2, K, s);
+        q2, v2, K, s, launched);
+}
+
+// What the resident chunk is at (B, n, D) on this card: out = {whether it
+// runs (1) or the launch-a-step path does (0), blocks (its cluster),
+// threads a block, groups, shared memory bytes a block, registers and
+// local bytes of the dsqrt kernel, the clusters of that shape the card
+// holds at once (0 where it does not run), RESIDENT_MAX_N}. Returns the
+// CUDA error, or 0.
+extern "C" int graded_resident_f64_info(int B, int n, int D, int* out) {
+    const auto kernel = graded_resident_f64_kernel<nbody::DIST3_DSQRT>;
+    int smem_max = 0, clusters = 0;
+    cudaFuncAttributes attr;
+    cudaError_t err = res_smem_max(&smem_max);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const ResShape sh = res_shape(B, n, D, smem_max);
+    if (sh.B > 0) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sh.bytes);
+        ResLaunch l(sh, nullptr);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &l.cfg);
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const int values[] = {sh.B > 0, sh.B, sh.threads, sh.groups, sh.bytes,
+                          attr.numRegs, static_cast<int>(attr.localSizeBytes),
+                          clusters, RESIDENT_MAX_N};
+    for (int k = 0; k < 9; ++k) out[k] = values[k];
+    return 0;
 }
 
 // One launch of a mesh rank (graded.cuh graded_rows_launch): step t =

@@ -6,6 +6,8 @@ C interface, `_build/libnbody_kernels.so`, loaded with ctypes. The build
 runs at first use and again whenever a source, a shared header (`*.cuh`)
 or the flags change (a SHA-256 stamp beside the library). Nothing here
 runs at import: this module is imported on machines that have no nvcc.
+`build_variant` builds another copy of the sources into a library of its
+own, for a measurement that times a variant against this build.
 """
 
 from __future__ import annotations
@@ -77,17 +79,17 @@ def _nvcc_all(cmds) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def _compile_and_link(digest: str, stamp: str) -> None:
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+def _compile_and_link(csrc: str, lib_path: str) -> None:
+    """Compile `SOURCES` from the directory csrc and link them into
+    lib_path."""
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(lib_path)) as tmp:
         objs = [os.path.join(tmp, name + ".o") for name in SOURCES]
         _nvcc_all([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj,
-                   os.path.join(CSRC, name)]
+                   os.path.join(csrc, name)]
                   for name, obj in zip(SOURCES, objs))
-        lib = os.path.join(tmp, os.path.basename(LIB_PATH))
+        lib = os.path.join(tmp, os.path.basename(lib_path))
         _nvcc_all([[_nvcc(), "-shared", "-o", lib, *objs]])
-        os.replace(lib, LIB_PATH)
-    with open(stamp, "w") as f:
-        f.write(digest)
+        os.replace(lib, lib_path)
 
 
 @functools.cache
@@ -105,10 +107,26 @@ def load() -> ctypes.CDLL:
             with open(stamp) as f:
                 fresh = f.read().strip() == digest
         if not fresh:
-            _compile_and_link(digest, stamp)
+            _compile_and_link(CSRC, LIB_PATH)
+            with open(stamp, "w") as f:
+                f.write(digest)
     finally:
         os.close(fd)
-    lib = ctypes.CDLL(LIB_PATH)
+    return declare(ctypes.CDLL(LIB_PATH))
+
+
+def build_variant(csrc: str, lib_path: str) -> ctypes.CDLL:
+    """Build a library from another copy of the sources, the directory
+    csrc (e.g. with one constant edited, to time a variant against this
+    one in one process), into lib_path, a name no other loaded library
+    has; load it and declare its entry points."""
+    _compile_and_link(csrc, lib_path)
+    return declare(ctypes.CDLL(lib_path))
+
+
+def declare(lib):
+    """Declare every entry point's C signature on the loaded library lib;
+    returns lib."""
     lib.accel_f64_launch.restype = ctypes.c_int
     lib.accel_f64_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # qi, qj, gm
@@ -176,6 +194,10 @@ def load() -> ctypes.CDLL:
     lib.accel_f64_info.argtypes = [ctypes.c_void_p]
     lib.graded_step_f64_info.restype = ctypes.c_int
     lib.graded_step_f64_info.argtypes = [ctypes.c_void_p]
+    # what the resident chunk is at (B, n, D) (int out[9])
+    lib.graded_resident_f64_info.restype = ctypes.c_int
+    lib.graded_resident_f64_info.argtypes = [*[ctypes.c_int] * 3,
+                                             ctypes.c_void_p]
     lib.accel_dd_launch.restype = ctypes.c_int
     lib.accel_dd_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # qi, qj, gm
@@ -205,7 +227,8 @@ def load() -> ctypes.CDLL:
     ]
     # graded_chunk_*_launch: the ints after (mode, B, n, D, planet), then
     # G, dt, eps2, r2 (each as (hi, lo) for double-double); the device
-    # word of the base step s0 and the chunk's K steps
+    # word of the base step s0, the chunk's K steps and the host int that
+    # receives the launches made
     for name, ints, real, reals in (
             ("graded_chunk_f64_launch", 1, ctypes.c_double, 4),   # dist3
             ("graded_chunk_f32_launch", 0, ctypes.c_float, 4),
@@ -219,6 +242,7 @@ def load() -> ctypes.CDLL:
             *[ctypes.c_int] * (5 + ints),
             *[real] * reals,
             ctypes.c_void_p, ctypes.c_int,                   # s0, K
+            ctypes.c_void_p,                                 # launched
             ctypes.c_void_p,                                 # cudaStream_t
         ]
     # graded_rows_*_step: the chunk's pointers from m0 to v_snap; (mode, B,

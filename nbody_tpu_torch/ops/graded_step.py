@@ -13,12 +13,15 @@ step kernel of that representation (csrc/graded_step_f64.cu, whose force is
 kernel B1's in the carry's dist3 form; csrc/graded_step_f32.cu, kernel
 B2's; csrc/graded_step_dd.cu, kernel B4's): one launch per step and one
 closing check launch, no host synchronisation, as one replay of a CUDA
-graph. The graph is captured from one C call of the chunk's launches at
-the first chunk of its shape and replayed for every chunk of that shape
-(`ChunkGraphs`): the kernels read the chunk's base step from a device word
-that the host writes before each replay. The wrappers `graded_step_f64`,
-`graded_step_f32` and `graded_step_dd` count the launches a replay makes,
-and `GRAPHS` the replays and captures. Only a tensor that lies on the CPU
+graph; the binary64 fused driver's chunk at small n is one launch of its
+resident kernel, which the C call chooses by shape. The graph is captured
+from one C call of the chunk's launches at the first chunk of its shape
+and replayed for every chunk of that shape (`ChunkGraphs`): the kernels
+read the chunk's base step from a device word that the host writes before
+each replay. The wrappers `graded_step_f64`, `graded_step_f32` and
+`graded_step_dd` count the launches a replay makes, as the C call reports
+them, `GRAPHS` the replays and captures, and a request's record the chunks
+the resident kernel ran (utils/profiling). Only a tensor that lies on the CPU
 goes to the plain version,
 the per-step PyTorch loop `_p12_chunk_ref`, `_p3_chunk_ref` or
 `_p123_chunk_ref`, whose force is `ops/integrate`'s (kernels B1, B2 and B4
@@ -54,6 +57,7 @@ The JAX package runs the same chunks as compiled scans
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import time
@@ -496,9 +500,12 @@ def _launch(fn, mode: int, c: Carry, s0: int, s1: int) -> None:
 
 def _replay_chunk(fn, mode: int, c: Carry, s0: int, s1: int, lib) -> None:
     """The replay for steps s0+1..s1 of the graph captured from one C call
-    of `graded_chunk_*_launch` (K step launches and one check launch) and,
-    for an odd K, the copy of the result from the second buffer into (c.q,
-    c.v); the arrivals stay in c.arr (csrc/graded.cuh). `lib`: the kernel
+    of `graded_chunk_*_launch` (K step launches and one check launch, or
+    one launch of the resident chunk) and, for an odd K, the copy of the
+    result from the second buffer into (c.q, c.v); the arrivals stay in
+    c.arr (csrc/graded.cuh). The launches the C call reported at the
+    capture are added to `fn.launches`; a chunk of one launch is the
+    resident kernel's, counted in the request's record. `lib`: the kernel
     library, or a stand-in in the CPU tests."""
     K = s1 - s0
     if is_dd(c.q):
@@ -522,22 +529,26 @@ def _replay_chunk(fn, mode: int, c: Carry, s0: int, s1: int, lib) -> None:
                 *(_ptr(x) for x in tensors[6:]), mode, q.shape[0],
                 q.shape[1], c.others.shape[0] - 1, c.planet, *ints, *reals,
                 word.data_ptr(), K)
+        launched = ctypes.c_int(0)
 
         def body() -> None:
             if arr2 is not arr:
                 arr2.copy_(arr)       # the second arrival buffer, on entry
-            rc = launch(*head, _stream(q))
+            rc = launch(*head, ctypes.addressof(launched), _stream(q))
             if rc != 0:
                 raise RuntimeError(f"{fn.__name__} kernel launch failed: "
                                    f"CUDA error {rc}")
             if K % 2:
                 q.copy_(q2)
                 v.copy_(v2)
+        body.launched = launched
         return body
 
-    _graphs(c).run(_key("chunk", mode, c, K, ints, (q, v) + tensors),
-                   build, q.device, s0)
-    fn.launches += K + 1
+    body = _graphs(c).run(_key("chunk", mode, c, K, ints, (q, v) + tensors),
+                          build, q.device, s0)
+    fn.launches += body.launched.value
+    if body.launched.value == 1:
+        profiling.resident_chunk()
 
 
 def graded_step_f64(mode: int, c: Carry, s0: int, s1: int) -> None:

@@ -34,6 +34,9 @@ its own):
                   chunk and after the last
     row_steps     rows x steps of the chunks by driver: p12, p3, p123, sim
     captures, capture_s   the graph captures and their host seconds
+    resident_chunks       the graded chunks that ran as one launch of the
+                  resident kernel (csrc/graded_step_f64.cu;
+                  `resident_chunk`)
 
 so that wall_s = outside_s + gaps_s + chunk_s. A request that raises
 leaves no record. While torch.profiler is active, each span is also a
@@ -86,6 +89,7 @@ class Request:
         self.row_steps: dict = {}
         self.captures = 0
         self.capture_s = 0.0
+        self.resident_chunks = 0
         self.stream: torch.cuda.Stream | None = None    # the last chunk's
         self.record: dict | None = None
 
@@ -223,6 +227,14 @@ def capture():
                 sp.parent.events[0].record(sp.parent.stream)
 
 
+def resident_chunk() -> None:
+    """Count a graded chunk that ran as one launch of the resident kernel
+    in the open request; nothing outside one."""
+    req = getattr(_open, "request", None)
+    if req is not None:
+        req.resident_chunks += 1
+
+
 def _reduce(req: Request) -> dict:
     """The closed request's record (module docstring). The gaps are the
     span less the chunks: one clock reading a chunk and one a request."""
@@ -244,7 +256,8 @@ def _reduce(req: Request) -> dict:
             "chunk_s": chunk_s, "chunk_host_s": req.chunk_host_s,
             "gaps_s": span_s - chunk_s, "span_s": span_s,
             "outside_s": wall_s - span_s, "row_steps": dict(req.row_steps),
-            "captures": req.captures, "capture_s": req.capture_s}
+            "captures": req.captures, "capture_s": req.capture_s,
+            "resident_chunks": req.resident_chunks}
 
 
 @contextlib.contextmanager

@@ -33,6 +33,8 @@ a direct C call of the same chunk (`chip_smoke.check_graphs`):
 import ctypes
 import dataclasses
 import math
+import os
+import re
 
 import numpy as np
 import pytest
@@ -40,12 +42,18 @@ import torch
 
 from nbody_tpu_torch import SimConfig, solve_scene
 from nbody_tpu_torch.models import direct_sum as ds
+from nbody_tpu_torch.ops import _build
 from nbody_tpu_torch.ops import graded_step as gs
 from nbody_tpu_torch.physics import oscillation_table
 
 from test_torch_graded_step import STEPS, _carry, _fuzz, _grown
 
 CPU = torch.device("cpu")
+# the largest n and rows of a binary64 fused chunk that the library runs
+# as one launch of its resident kernel (csrc/graded_step_f64.cu)
+_F64 = open(os.path.join(_build.CSRC, "graded_step_f64.cu")).read()
+RESIDENT_MAX_N = int(re.search(r"RESIDENT_MAX_N = (\d+);", _F64).group(1))
+RES_MAX_ROWS = int(re.search(r"RES_MAX_ROWS = (\d+);", _F64).group(1))
 
 
 def _view(ptr, shape: tuple, dtype) -> torch.Tensor:
@@ -60,7 +68,12 @@ def _view(ptr, shape: tuple, dtype) -> torch.Tensor:
 
 class FakeGradedLib:
     """A stand-in for the kernel library's graded entry points on CPU
-    tensors, for one carry's constants (module docstring)."""
+    tensors, for one carry's constants (module docstring). Its chunk calls
+    write the launches they stand for into the host int they are given:
+    one for a binary64 fused chunk of at most `resident_max_n` bodies and
+    RES_MAX_ROWS rows (the resident kernel), else K + 1."""
+
+    resident_max_n = RESIDENT_MAX_N
 
     def __init__(self, c: gs.Carry):
         self.c = c
@@ -68,22 +81,25 @@ class FakeGradedLib:
         self.launches = []     # (s0, r0, off, check, qv, qv_out)
 
     def graded_chunk_f64_launch(self, *a):
-        return self._chunk(*a[:21], *a[-3:])
+        resident = (a[16] == gs.P123 and a[18] <= self.resident_max_n
+                    and a[17] <= RES_MAX_ROWS)
+        return self._chunk(*a[:21], *a[-4:], resident=resident)
 
     def graded_chunk_f32_launch(self, *a):
-        return self._chunk(*a[:21], *a[-3:])
+        return self._chunk(*a[:21], *a[-4:])
 
     def graded_chunk_dd_launch(self, *a):
-        return self._chunk(*a[:21], *a[-3:])
+        return self._chunk(*a[:21], *a[-4:])
 
     def _chunk(self, q, v, q2, v2, m0, mh, fst, md2, others, arr, arr2, hit,
                flag, min_d2, q_snap, v_snap, mode, B, n, D, planet, word, K,
-               stream):
+               launched, stream, resident=False):
         c0 = self.c
         dt = c0.q.dtype
         tail = (2,) if gs.is_dd(c0.q) else ()
         s0 = int(_view(word, (1,), torch.int32)[0])
         self.chunks.append((s0, K))
+        ctypes.c_int.from_address(launched).value = 1 if resident else K + 1
 
         def real(p, shape):
             return _view(p, shape + tail, dt)
@@ -203,7 +219,8 @@ def test_chunks_in_place_and_bitwise_plain(mode, dtype, K):
     """Three successive chunks of K steps through one graph: c.q, c.v and
     c.arr hold the result at the addresses they had (the odd K's result
     copied back from the second buffer), bitwise the plain chunk's, with
-    one capture, three replays and K + 1 launches a replay."""
+    one capture, three replays and K + 1 launches a replay (one, the
+    resident kernel's, for the binary64 fused chunk at n = 10)."""
     m = MODES[mode]
     got, want = _carry(m, DTYPES[dtype]), _carry(m, DTYPES[dtype])
     ptrs = {k: x.data_ptr() for k, x in _tensor_fields(got).items()}
@@ -219,7 +236,8 @@ def test_chunks_in_place_and_bitwise_plain(mode, dtype, K):
     assert lib.chunks == [(s0, K) for s0, _ in chunks]
     assert len(capture.bodies) == 1 and len(got.graphs.entries) == 1
     assert _counts() == (before[0] + 3, before[1] + 1)
-    assert fn.launches - launches == 3 * (K + 1)
+    resident = (mode, dtype) == ("p123", "f64")
+    assert fn.launches - launches == 3 * (1 if resident else K + 1)
 
 
 def test_arrivals_stay_in_carry_across_parities():
