@@ -655,6 +655,7 @@ def _rows_ref(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
                 out[r, 1, :, :r1 - r0] = vn
         if gather is not None:
             gather(out)
+            profiling.gathered(1, out.numel() * out.element_size())
         return from_blocks(out, n)
 
     whole = dataclasses.replace(c, q=q, v=v)
@@ -687,7 +688,9 @@ def _replay_rows(fn, mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
     kernel on its rows), `gather` after each step (an in-place NCCL
     all_gather on a card, captured with the launches), one check launch
     and, for an odd K, the copy of the result from the second buffer into
-    c.q. `lib`: the kernel library, or a stand-in in the CPU tests."""
+    c.q; the gathers and their bytes counted in the open request as the
+    graph captured them. `lib`: the kernel library, or a stand-in in the
+    CPU tests."""
     K = s1 - s0
     if is_dd(c.q):
         launch, ints = lib.graded_rows_dd_step, ()
@@ -734,12 +737,15 @@ def _replay_rows(fn, mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
             call(ptrs[last], None, mine[0], K, 0)
             if last:
                 q.copy_(q2)
+        body.gathers = 0 if gather is None else K
+        body.gather_bytes = body.gathers * q.numel() * q.element_size()
         return body
 
     extra = (*ints, blocks, roles, gather)
-    _graphs(c).run(_key("rows", mode, c, K, extra, (q,) + tensors), build,
-                   q.device, s0)
+    body = _graphs(c).run(_key("rows", mode, c, K, extra, (q,) + tensors),
+                          build, q.device, s0)
     fn.launches += K * len(mine) + 1
+    profiling.gathered(body.gathers, body.gather_bytes)
 
 
 def graded_rows_chunk(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,

@@ -53,7 +53,8 @@ In float32 the force is the mesh's ordered sum at tile T
 T = 128). Their plain versions (`sim_rows_chunk_*_ref`) are the eager
 loops whose force is the cross form's plain twin on the rank's rows and
 an all_gather of those rows' forces. The bits are the one-device eager
-loop's on every mesh shape (in float32 at one tile).
+loop's on every mesh shape (in float32 at one tile). Each all_gather is
+counted in the open request's record (utils/profiling `gathered`).
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import profiling
 from . import ddfloat as ddf
 from .accel_dd import accel_dd_ref, eps2_dd
 from .accel_f32 import TILE_J, accel_f32_ordered, accel_f32_ref, eps2_f32
@@ -528,6 +530,7 @@ def rows_force(cross, blocks: Blocks, gather):
                 out[r, :r1 - r0] = cross(q[r0:r1].contiguous(), q, gm)
         if gather is not None:
             gather(out)
+            profiling.gathered(1, out.numel() * out.element_size())
         return out.flatten(0, 1)[:n]
 
     return force
@@ -556,7 +559,9 @@ def _rows_chunk(wrapper, c: SimCarry, s0: int, s1: int, blocks: Blocks,
     the next force reads; then one `gather` of the carry's slots through a
     buffer of the body's own into the first buffer (without a gather, an
     odd K's copy back from the second). With graphs the graph holds all
-    of it, the in-place NCCL all_gathers too."""
+    of it, the in-place NCCL all_gathers too. The chunk's K gathers and
+    their bytes are counted in the open request (a replay's as its graph
+    captured them)."""
     K = s1 - s0
     k, ni, mine = blocks.k, blocks.ni, blocks.mine
     step = getattr(lib, name)
@@ -593,11 +598,17 @@ def _rows_chunk(wrapper, c: SimCarry, s0: int, s1: int, blocks: Blocks,
             gather(carry)
             for j, slot in enumerate(kept):
                 st[0, slot].unflatten(0, (k, ni)).copy_(carry[:, j])
+        run.gathers = run.gather_bytes = 0
+        if gather is not None:
+            run.gathers = K
+            run.gather_bytes = (K - 1) * pos[0].numel() * st.element_size() \
+                + carry.numel() * carry.element_size()
         return run
 
-    _run(c, s0, graphs, k * ni, ("rows", name, head, tail, K, blocks, gather),
-         body)
+    run = _run(c, s0, graphs, k * ni,
+               ("rows", name, head, tail, K, blocks, gather), body)
     wrapper.launches += 1 + K * len(mine)
+    profiling.gathered(run.gathers, run.gather_bytes)
 
 
 def _rows_head(m0, m_half, fst, blocks: Blocks) -> tuple:

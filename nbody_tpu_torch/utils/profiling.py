@@ -37,6 +37,11 @@ its own):
     resident_chunks       the graded chunks that ran as one launch of the
                   resident kernel (csrc/graded_step_f64.cu;
                   `resident_chunk`)
+    gathers, gather_bytes the all_gathers of blocks over the mesh's 'body'
+                  axis that the chunks enqueued (`gathered`: a step's
+                  positions, a chunk's carry, the plain versions' forces;
+                  a graph replay counts those it captured) and the bytes of
+                  their gathered outputs; 0 off the mesh
 
 so that wall_s = outside_s + gaps_s + chunk_s. A request that raises
 leaves no record. While torch.profiler is active, each span is also a
@@ -90,6 +95,8 @@ class Request:
         self.captures = 0
         self.capture_s = 0.0
         self.resident_chunks = 0
+        self.gathers = 0
+        self.gather_bytes = 0
         self.stream: torch.cuda.Stream | None = None    # the last chunk's
         self.record: dict | None = None
 
@@ -235,6 +242,15 @@ def resident_chunk() -> None:
         req.resident_chunks += 1
 
 
+def gathered(count: int, nbytes: int) -> None:
+    """Count `count` all_gathers whose gathered outputs hold `nbytes` bytes
+    in all in the open request; nothing outside one."""
+    req = getattr(_open, "request", None)
+    if req is not None:
+        req.gathers += count
+        req.gather_bytes += nbytes
+
+
 def _reduce(req: Request) -> dict:
     """The closed request's record (module docstring). The gaps are the
     span less the chunks: one clock reading a chunk and one a request."""
@@ -257,7 +273,8 @@ def _reduce(req: Request) -> dict:
             "gaps_s": span_s - chunk_s, "span_s": span_s,
             "outside_s": wall_s - span_s, "row_steps": dict(req.row_steps),
             "captures": req.captures, "capture_s": req.capture_s,
-            "resident_chunks": req.resident_chunks}
+            "resident_chunks": req.resident_chunks, "gathers": req.gathers,
+            "gather_bytes": req.gather_bytes}
 
 
 @contextlib.contextmanager

@@ -394,3 +394,46 @@ def sim_rows_emulated(axes: dict, precision: str, jobs: list,
         if graphs:
             out[label] = (out[label], len(g.entries))
     return out
+
+
+def sim_rows_gathers(axes: dict, precision: str, jobs: list,
+                     graphs: bool) -> dict:
+    """{label: ((gathers, gather_bytes) of the request's record, (calls,
+    bytes) that the gather itself saw)} of ops/sim_step's row-range chunks
+    through FakeSimLib on this rank, each job one request
+    (utils/profiling.entry); jobs and `graphs` as `sim_rows_emulated`
+    has them."""
+    import torch
+
+    from nbody_tpu_torch.ops import sim_step as ss
+    from nbody_tpu_torch.ops.graded_step import ChunkGraphs
+    from nbody_tpu_torch.parallel.sharded import body_blocks
+    from nbody_tpu_torch.utils import profiling
+
+    mesh = _mesh(axes)
+    out = {}
+    for label, q, v, a, m0, m_half, fst, chunks, kw in jobs:
+        fake_kernels(setattr, FakeSimLib(kw["eps"]))
+        blocks, gather = body_blocks(mesh, q.shape[0])
+        seen = [0, 0]
+
+        def counted(x, gather=gather, seen=seen):
+            seen[0] += 1
+            seen[1] += x.numel() * x.element_size()
+            gather(x)
+
+        t = (lambda x: None if x is None else torch.from_numpy(x.copy()))
+        c = ss.SimCarry(t(q), t(v), t(a))
+        if kw.get("compensated"):
+            c.qc, c.vc = torch.zeros_like(c.q), torch.zeros_like(c.v)
+        fn = ss.sim_rows_chunk_f64 if precision == "f64" else \
+            ss.sim_rows_chunk_f32
+        g = ChunkGraphs(capture=lambda body: body) if graphs else None
+        m0t, m_halft, fstt = t(m0), t(m_half), t(fst)
+        with profiling.entry("test") as req:
+            for s0, s1 in chunks:
+                fn(c, m0t, m_halft, fstt, s0, s1, blocks=blocks,
+                   gather=counted, graphs=g, **kw)
+        out[label] = ((req.record["gathers"], req.record["gather_bytes"]),
+                      tuple(seen))
+    return out
