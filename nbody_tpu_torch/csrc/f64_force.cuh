@@ -17,9 +17,13 @@
 // The sources come from an accessor (Src), so that each caller gives them
 // as it has them: a table of positions and gm_j (B1 and simulate's mesh
 // step; F64Table below), or positions in the mesh's row blocks with gm_j
-// formed from the masses a pair (B1'; graded_step_f64.cu). Simulate's
+// formed from the masses (B1'; graded_step_f64.cu). Simulate's
 // persistent chunk, which writes its sources between steps, reads them
-// with plain loads a tile ahead (f64_rows_terms_ahead).
+// with plain loads a tile ahead (f64_rows_terms_ahead). B1''s launch-a-step
+// path has compute threads of its own (F64Producer below): several rows a
+// thread, the source and its masses a tile ahead, zero numerators without
+// the slow-path call; and a fold loop whose tile is unrolled
+// (f64_rows_fold_tiles), the same sums.
 //
 // Bound: the fp64 pipe and the fold's latency. A pair costs 40 fp64
 // instructions in the SASS (scripts/sass_count.py), a square root and one
@@ -27,12 +31,12 @@
 // threads issue; a row component is a chain of n dependent adds (about 9.5
 // cycles each on the card, chip_smoke.py phase 2's fold floor), which no
 // reassociation may shorten, run in parallel over the lanes of the fold
-// warp and over the blocks an SM holds. The binary64 paths run a few
-// thousand rows at most (the graded batch's B <= 2 and simulate at
-// n = 1024, the mesh's 512-row cross form), so blocks of few rows fill the
-// SMs and the fold's latency is paid in parallel: one geometry, F64Block.
-// wgmma and TMA do not apply: there is no fp64 matrix product here and a
-// tile is a few KB.
+// warp and over the blocks an SM holds. Kernel B1 and simulate run a few
+// thousand rows at most (simulate at n = 1024, the mesh's 512-row cross
+// form), so blocks of few rows fill the SMs: one geometry, F64Block. On
+// B1''s graded step this producer fell behind its fold (PERF.md section
+// 6), which F64Producer repairs. wgmma and TMA do not apply: there is no
+// fp64 matrix product here and a tile is a few KB.
 
 #pragma once
 
@@ -181,6 +185,110 @@ __device__ __forceinline__ void f64_rows_terms_ahead(const double* q,
         f64_bar_arrive(Geo::BAR_FULL + buf, Geo::THREADS);
         cur = next;
     }
+}
+
+// B1''s producer on the graded launch-a-step path (graded_step_f64.cu),
+// the compute threads' half of the block force above in another form: R
+// rows a block, RT of them a compute thread, TJ columns a tile, NBUF term
+// tiles in the ring, MINB blocks an SM asked of ptxas. The fold warp, the
+// term ring and its barriers are F64Geometry's (f64_rows_qi serves both;
+// the fold warp's loop is f64_rows_fold_tiles).
+template <int R_, int RT_, int TJ_, int NBUF_, int MINB_>
+struct F64Producer {
+    static constexpr int R = R_, RT = RT_, TJ = TJ_, NBUF = NBUF_,
+                         MINB = MINB_;
+    static constexpr int NC = R / RT * TJ;     // compute threads
+    static constexpr int THREADS = NC + 32;    // and one fold warp
+    static constexpr int BAR_FULL = 1, BAR_EMPTY = 1 + NBUF;
+    static_assert(R % RT == 0 && NC % 32 == 0 && TJ % 32 == 0,
+                  "whole warps, a warp's columns of one row group");
+    static_assert(3 * R <= 32, "one fold lane per row and component");
+    static_assert(THREADS <= 1024 && BAR_EMPTY + NBUF <= 16,
+                  "block, barrier limits");
+    struct Smem {
+        double qi[3][R];
+        double term[NBUF][3][R][TJ + 1];   // +1: no bank conflicts
+    };
+};
+
+// F64Producer's compute thread (g, jj): rows g, g + R / RT, ... of the
+// block against column jj of every tile, into the term ring. Src gives a
+// source as the thread holds it (Src::Source, src.at(cur, j, n): zeros
+// past n) and its gm_j (src.gm); cur and s: the thread's cursor and tile
+// 0's source (src.at at jj), which the caller loads before the block's
+// set-up so that its latency runs under it. Each tile's source is loaded
+// into registers a tile ahead and its gm_j formed where the pairs take it
+// (graded_gm's bits, once a thread and tile: once a block where RT = R);
+// its RT pairs' terms (forces.cuh b1_pair_terms) are b1_pair_term's,
+// whichever thread makes them.
+template <class Geo, int dist3, class Src>
+__device__ __forceinline__ void f64_rows_terms_rt(
+        const Src& src, typename Src::Cursor& cur, typename Src::Source s,
+        int n, int live, double eps2, typename Geo::Smem& sm) {
+    constexpr int TJ = Geo::TJ, NBUF = Geo::NBUF, RT = Geo::RT;
+    constexpr int RG = Geo::R / RT;   // a row group's stride
+    const int g = threadIdx.x / TJ, jj = threadIdx.x % TJ;
+    const int tiles = (n + TJ - 1) / TJ;
+    double xi[RT], yi[RT], zi[RT];
+#pragma unroll
+    for (int k = 0; k < RT; ++k) {
+        xi[k] = sm.qi[0][g + k * RG];
+        yi[k] = sm.qi[1][g + k * RG];
+        zi[k] = sm.qi[2][g + k * RG];
+    }
+    for (int k = 0; k < tiles; ++k) {
+        const int buf = k % NBUF;
+        const int j = k * TJ + jj;
+        const typename Src::Source next = src.at(cur, j + TJ, n);
+        if (k >= NBUF) f64_bar_sync(Geo::BAR_EMPTY + buf, Geo::THREADS);
+        if (g < live && j < n) {
+            double t[RT][3];
+            b1_pair_terms<dist3, RT>(s.x, s.y, s.z, src.gm(s), xi, yi, zi,
+                                     eps2, t);
+#pragma unroll
+            for (int r = 0; r < RT; ++r) {
+                if (g + r * RG < live) {
+                    sm.term[buf][0][g + r * RG][jj] = t[r][0];
+                    sm.term[buf][1][g + r * RG][jj] = t[r][1];
+                    sm.term[buf][2][g + r * RG][jj] = t[r][2];
+                }
+            }
+        }
+        f64_bar_arrive(Geo::BAR_FULL + buf, Geo::THREADS);
+        s = next;
+    }
+}
+
+// F64Producer's fold warp: f64_rows_fold's sum, in its order, with a
+// whole tile's adds unrolled, so that the loads of a tile's terms run
+// ahead of its chain of adds where a loop of runtime length waits for
+// each group of them
+template <class Geo>
+__device__ __forceinline__ double f64_rows_fold_tiles(int n, bool folds,
+                                                      typename Geo::Smem& sm) {
+    constexpr int TJ = Geo::TJ, NBUF = Geo::NBUF;
+    const int lane = threadIdx.x - Geo::NC, fr = lane / 3, fc = lane % 3;
+    const int tiles = (n + TJ - 1) / TJ;
+    double acc = 0.0;
+    for (int k = 0; k < tiles; ++k) {
+        const int buf = k % NBUF;
+        const int cols = min(TJ, n - k * TJ);
+        f64_bar_sync(Geo::BAR_FULL + buf, Geo::THREADS);
+        if (folds) {
+            const double* term = sm.term[buf][fc][fr];
+            if (cols == TJ) {
+#pragma unroll
+                for (int jj = 0; jj < TJ; ++jj)
+                    acc = __dadd_rn(acc, term[jj]);
+            } else {
+                for (int jj = 0; jj < cols; ++jj)
+                    acc = __dadd_rn(acc, term[jj]);
+            }
+        }
+        if (k + NBUF < tiles)
+            f64_bar_arrive(Geo::BAR_EMPTY + buf, Geo::THREADS);
+    }
+    return acc;
 }
 
 // Whether this fold-warp thread folds a row component of one of the

@@ -17,14 +17,19 @@
 // (ops/graded_step.py) and to native/core.cc in the same dist3 mode (dsqrt
 // or sqrt3, one instantiation each).
 //
-// Layout: a block owns R rows of one scenario row b (grid ceil(n / R) x B;
-// at n = 1024 that is 256 blocks a row, about two per SM). Its force is
-// the binary64 block force (f64_force.cuh, geometry F64Block): R * TJ
-// compute threads write a tile's pair terms into a ring of NBUF shared
-// term tiles, and one fold warp, lane (row, component), adds them in
-// ascending j into a register, the serial order the contract fixes; gm_j
-// is formed from the masses a pair. The fold lane then applies the Euler
-// update to its component. Kernel B1 runs on the same block force.
+// Layout: a block owns R rows of one scenario row b (grid ceil(n / R) x
+// B). Its force is a warp-specialised block force (f64_force.cuh): compute
+// threads write a tile's pair terms into a ring of NBUF shared term
+// tiles, and one fold warp, lane (row, component), adds them in ascending
+// j into a register, the serial order the contract fixes; the fold lane
+// then applies the Euler update to its component. The compute threads
+// are B1''s own producer (F64Producer): RT rows a thread against each
+// source, the source and its masses loaded a tile ahead, and zero
+// numerators (a row's pair with itself, a massless device, a destroyed
+// one) returned without __ddiv_rn's slow-path call. The geometry (R, RT,
+// TJ, NBUF) is chosen by shape (b1_geometry): blocks of two rows where
+// they fill the card once, of four where they do not, one tile of 64
+// columns at most 64 sources.
 //
 // The mesh, the row-range form: a launch takes the rows [r0, r0 + ni)
 // of a state kept in k blocks of ni rows (blocks.cuh, the layout the
@@ -40,14 +45,22 @@
 // "NVIDIA H100 80GB HBM3, 700.00 W"; the instantiation that knows is
 // within 1%.
 //
-// Bound: the fold's latency and the fp64 pipe. Each row component is a
-// chain of n dependent fp64 adds, which no reassociation may shorten (at
-// n = 1024 about 5 us on the card, chip_smoke.py phase 2's fold probe);
-// the n^2 pair terms take 40 fp64 instructions each (2.5 us at the fp64
-// issue rate), a square root and three divisions by one shared reciprocal
-// among them (forces.cuh div_rn_with). A step
-// costs them plus the launch. wgmma and TMA do not apply: there is no fp64
-// matrix product and a tile is a few KB.
+// Bound: the fold's latency, the fp64 pipe and the kernel boundary. Each
+// row component is a chain of n dependent fp64 adds, which no
+// reassociation may shorten (at n = 1024 5.1 us on the card, chip_smoke.py
+// phase 2's fold probe); the n^2 pair terms take 40 fp64 instructions each
+// (2.5 us at B = 1 at the fp64 issue rate), a square root and three
+// divisions by one shared reciprocal among them (forces.cuh
+// b1_pair_terms). Measured (chip_smoke.py phase 17, "NVIDIA H100 80GB
+// HBM3, 700.00 W", n = 1024, graph replays): kernel B1's producer made
+// the terms slower than the fold could add them (12.2 us a step with no
+// adds at B = 1, of 13.8), and its fold loop ran at twice the probe's 5.1
+// us; with B1''s producer and the fold's tile unrolled a step takes 10.3
+// us at B = 1, fold-bound (9.3 with no terms past the ring), and 14.8 at
+// B = 2, producer-bound (12.3 with no adds). A chunk of frozen rows, the
+// kernel boundary and a block's set-up, costs 2.9 us a step. wgmma and
+// TMA do not apply: there is no fp64 matrix product and a tile is a few
+// KB.
 //
 // The resident chunk. Up to RESIDENT_MAX_N bodies and RES_MAX_ROWS rows,
 // where a block's part fits its shared memory, a chunk of K steps of the
@@ -118,12 +131,12 @@ namespace {
 namespace cg = cooperative_groups;
 
 using nbody::GradedArgs;
-using Geo = nbody::F64Block;
 
 constexpr int CHECK_THREADS = 256;
 
-// B1''s sources: scenario row b's positions qb in the state's layout and
-// gm_j = fl(fl(m0_j + fl(mh_j * f)) * G) formed a pair
+// B1''s sources (f64_force.cuh f64_rows_terms_rt): scenario row b's
+// positions qb in the state's layout and its masses, source j a position
+// and (m0_j, mh_j), gm_j = fl(fl(m0_j + fl(mh_j * f)) * G) (graded_gm)
 template <bool Blocked>
 struct GradedSources {
     const double* __restrict__ qb;
@@ -132,27 +145,35 @@ struct GradedSources {
     double f, G;
     nbody::Blocks L;
     using Cursor = nbody::BlockCursor;
+    struct Source {
+        double x, y, z, m0, mh;
+    };
     __device__ __forceinline__ Cursor cursor(int jj) const {
         return Cursor(L, jj);
     }
-    __device__ __forceinline__ const double* pos(Cursor& cur, int j) const {
-        return qb + nbody::source_at<Blocked>(cur, L, j);
+    // source j, or zeros past n
+    __device__ __forceinline__ Source at(Cursor& cur, int j, int n) const {
+        if (j >= n) return {0.0, 0.0, 0.0, 0.0, 0.0};
+        const double* p = qb + nbody::source_at<Blocked>(cur, L, j);
+        return {p[0], p[1], p[2], m0[j], mh[j]};
     }
-    __device__ __forceinline__ double gm_of(int j) const {
-        return nbody::graded_gm(m0[j], mh[j], f, G);
+    __device__ __forceinline__ double gm(const Source& s) const {
+        return nbody::graded_gm(s.m0, s.mh, f, G);
     }
 };
 
-// dist3: the form of d2^1.5 (forces.cuh), a template argument, so the
-// dsqrt instantiation is the same code whatever the other form costs;
-// Blocked: whether the state may lie in several blocks (the mesh)
-template <int dist3, bool Blocked>
+// Geo: one of the launch-a-step path's geometries (with_geometry below,
+// f64_force.cuh F64Producer); dist3: the form of d2^1.5 (forces.cuh), a
+// template argument, so the dsqrt instantiation is the same code whatever
+// the other form costs; Blocked: whether the state may lie in several
+// blocks (the mesh).
+template <class Geo, int dist3, bool Blocked>
 __global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
 graded_step_f64_kernel(GradedArgs<double> a, const double* __restrict__ q_in,
                        const double* __restrict__ v_in,
                        double* __restrict__ q_out, double* __restrict__ v_out,
                        int off, int check) {
-    __shared__ Geo::Smem sm;
+    __shared__ typename Geo::Smem sm;
 
     const int t = nbody::graded_step_at(a, off);
     const int b = blockIdx.y, i0 = a.r0 + blockIdx.x * Geo::R;
@@ -172,18 +193,25 @@ graded_step_f64_kernel(GradedArgs<double> a, const double* __restrict__ q_in,
     const long long ob = 3LL * b * a.L.ni + own;
     const double* qb = q_in + sb;
     const size_t mb = static_cast<size_t>(b) * n;
+    const GradedSources<Blocked> sources{qb, a.m0 + mb, a.mh + mb, a.fst[t],
+                                         a.G, a.L};
+    // tile 0's source first, so that its loads run under the block's set-up
+    const bool computes = threadIdx.x < Geo::NC;
+    const int jj = threadIdx.x % Geo::TJ;
+    auto cur = sources.cursor(jj);
+    typename GradedSources<Blocked>::Source s{};
+    if (computes) s = sources.at(cur, jj, n);
     nbody::f64_rows_qi<Geo>(qb + own, live, sm);
-    if (threadIdx.x < Geo::NC) {
-        const GradedSources<Blocked> sources{qb, a.m0 + mb, a.mh + mb,
-                                             a.fst[t], a.G, a.L};
-        nbody::f64_rows_terms<Geo, dist3>(sources, n, live, a.eps2, sm);
+    if (computes) {
+        nbody::f64_rows_terms_rt<Geo, dist3>(sources, cur, s, n, live,
+                                             a.eps2, sm);
         return;
     }
     int x;
     const bool folds = nbody::f64_fold_lane<Geo>(live, x);
     const double q0 = folds ? qb[own + x] : 0.0;
     const double v0 = folds ? v_in[sb + own + x] : 0.0;
-    const double acc = nbody::f64_rows_fold<Geo>(n, folds, sm);
+    const double acc = nbody::f64_rows_fold_tiles<Geo>(n, folds, sm);
     if (folds)
         nbody::graded_euler(acc, q0, v0, a.dt, q_out[ob + x], v_out[ob + x]);
 }
@@ -508,6 +536,69 @@ fold_floor_f64_kernel(const double* __restrict__ x, double* __restrict__ out,
     if (threadIdx.x == 0) *ns = static_cast<long long>(t1 - t0);
 }
 
+// The launch-a-step path's geometries by index (b1_geometry's choice):
+// F64Producer<R, RT, TJ, NBUF, MINB>
+template <class F>
+int with_geometry(int g, F&& f) {
+    switch (g) {
+        case 0: return f(nbody::F64Producer<4, 1, 64, 4, 3>{});
+        case 1: return f(nbody::F64Producer<2, 1, 128, 4, 3>{});
+        case 2: return f(nbody::F64Producer<2, 2, 128, 4, 4>{});
+        case 3: return f(nbody::F64Producer<4, 2, 64, 4, 4>{});
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// one 64-column tile at most this many sources; the sources up to which
+// one row a compute thread beats two in blocks of two rows, and in blocks
+// of four
+constexpr int NARROW_MAX_N = 64, ONE_ROW_MAX_N = 256, ONE_ROW4_MAX_N = 512;
+
+// Whether B scenario rows of ni rows, in blocks of two rows, take one
+// wave at `minb` blocks an SM of a card of `sms` SMs
+bool one_wave(int B, int ni, int minb, int sms) {
+    return static_cast<long long>(B) * ((ni + 1) / 2)
+           <= static_cast<long long>(minb) * sms;
+}
+
+// The geometry of a launch of B scenario rows, each its ni rows of n
+// bodies, on a card of `sms` SMs: blocks of two rows where they take one
+// wave, one row a compute thread (1: 3 blocks an SM, its registers) up to
+// ONE_ROW_MAX_N sources, two (2: 4 an SM) above; where they do not,
+// blocks of four rows, one row a thread (0) up to ONE_ROW4_MAX_N sources,
+// two (3) above; at most NARROW_MAX_N sources, one tile: 0 (PERF.md
+// section 6, the table of geometries).
+int b1_geometry(int n, int B, int ni, int sms) {
+    if (n <= NARROW_MAX_N) return 0;
+    if (n <= ONE_ROW_MAX_N) return one_wave(B, ni, 3, sms) ? 1 : 0;
+    if (one_wave(B, ni, 4, sms)) return 2;
+    return n <= ONE_ROW4_MAX_N ? 0 : 3;
+}
+
+// b1_geometry on this card
+cudaError_t b1_geometry_here(int n, int B, int ni, int* g) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err == cudaSuccess) *g = b1_geometry(n, B, ni, sms);
+    return err;
+}
+
+using StepKernel = void (*)(GradedArgs<double>, const double*, const double*,
+                            double*, double*, int, int);
+
+// Geometry Geo's step kernel in the form (dist3, Blocked)
+template <class Geo>
+StepKernel step_kernel(bool dsqrt, bool blocked) {
+    constexpr int DSQRT = nbody::DIST3_DSQRT, SQRT3 = nbody::DIST3_SQRT3;
+    return blocked ? (dsqrt ? &graded_step_f64_kernel<Geo, DSQRT, true>
+                            : &graded_step_f64_kernel<Geo, SQRT3, true>)
+                   : (dsqrt ? &graded_step_f64_kernel<Geo, DSQRT, false>
+                            : &graded_step_f64_kernel<Geo, SQRT3, false>);
+}
+
 }  // namespace
 
 // Steps s0 + 1 .. s0 + K of a graded driver (mode 0 P12, 1 P3, 2 P123)
@@ -519,9 +610,10 @@ fold_floor_f64_kernel(const double* __restrict__ x, double* __restrict__ out,
 // mode does not use may be null. dist3: 1 dsqrt, 2 sqrt3 (native/core.cc's
 // numbers). The fused driver (P123) at n <= RESIDENT_MAX_N, where its
 // carry fits a block's shared memory, is one launch of the resident chunk;
-// everything else K step launches and a check launch. *launched (a host
-// int) is set to the launches made. Returns the first launch error, or
-// cudaErrorInvalidValue without launching.
+// everything else K step launches, in the geometry b1_geometry gives the
+// shape, and a check launch. *launched (a host int) is set to the
+// launches made. Returns the first launch error, or cudaErrorInvalidValue
+// without launching.
 extern "C" int graded_chunk_f64_launch(
         double* q, double* v, double* q2, double* v2, const double* m0,
         const double* mh, const double* fst, const double* md2,
@@ -550,16 +642,17 @@ extern "C" int graded_chunk_f64_launch(
                          : res_launch<nbody::DIST3_SQRT3>(a, q, v, q2, v2, K,
                                                           sh, s, launched);
     }
-    const dim3 grid((n + Geo::R - 1) / Geo::R, B);
-    if (dsqrt)
-        return nbody::graded_chunk(
-            graded_step_f64_kernel<nbody::DIST3_DSQRT, false>,
-            graded_check_f64_kernel, grid, Geo::THREADS, CHECK_THREADS, a,
-            q, v, q2, v2, K, s, launched);
-    return nbody::graded_chunk(
-        graded_step_f64_kernel<nbody::DIST3_SQRT3, false>,
-        graded_check_f64_kernel, grid, Geo::THREADS, CHECK_THREADS, a, q, v,
-        q2, v2, K, s, launched);
+    int g = 0;
+    const cudaError_t err = b1_geometry_here(n, B, n, &g);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return with_geometry(g, [&](auto geo) {
+        using Geo = decltype(geo);
+        const dim3 grid((n + Geo::R - 1) / Geo::R, B);
+        return nbody::graded_chunk(step_kernel<Geo>(dsqrt, false),
+                                   graded_check_f64_kernel, grid,
+                                   Geo::THREADS, CHECK_THREADS, a, q, v, q2,
+                                   v2, K, s, launched);
+    });
 }
 
 // What the resident chunk is at (B, n, D) on this card: out = {whether it
@@ -618,26 +711,60 @@ extern "C" int graded_rows_f64_step(
                                     qv_out != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     const long long half = a.L.stride / 2;   // a block's q rows, then v's
-    using StepKernel = void (*)(GradedArgs<double>, const double*,
-                                const double*, double*, double*, int, int);
     const bool dsqrt = dist3 == nbody::DIST3_DSQRT;
-    const StepKernel step =
-        k > 1 ? (dsqrt ? &graded_step_f64_kernel<nbody::DIST3_DSQRT, true>
-                       : &graded_step_f64_kernel<nbody::DIST3_SQRT3, true>)
-              : (dsqrt ? &graded_step_f64_kernel<nbody::DIST3_DSQRT, false>
-                       : &graded_step_f64_kernel<nbody::DIST3_SQRT3, false>);
-    return nbody::graded_rows_launch(
-        step, graded_check_f64_kernel, Geo::R, Geo::THREADS, CHECK_THREADS,
-        a, qv,
-        qv + half, qv_out, qv_out ? qv_out + half : nullptr, off, check,
-        static_cast<cudaStream_t>(stream));
+    int g = 0;
+    const cudaError_t err = b1_geometry_here(n, B, ni, &g);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return with_geometry(g, [&](auto geo) {
+        using Geo = decltype(geo);
+        return nbody::graded_rows_launch(
+            step_kernel<Geo>(dsqrt, k > 1), graded_check_f64_kernel, Geo::R,
+            Geo::THREADS, CHECK_THREADS, a, qv, qv + half, qv_out,
+            qv_out ? qv_out + half : nullptr, off, check,
+            static_cast<cudaStream_t>(stream));
+    });
 }
 
-// What the card says of the one-device dsqrt step kernel
-// (f64_force.cuh f64_kernel_info).
-extern "C" int graded_step_f64_info(int* out) {
-    return nbody::f64_kernel_info<Geo>(
-        graded_step_f64_kernel<nbody::DIST3_DSQRT, false>, out);
+// The geometry of the launch-a-step path at B scenario rows of n bodies,
+// ni of them a launch (n on one device, a body rank's block on the mesh):
+// out = {its index, rows a block, rows a compute thread, columns a tile,
+// term tiles in the ring}. Returns 0, or cudaErrorInvalidValue.
+extern "C" int graded_step_f64_geometry(int B, int n, int ni, int* out) {
+    if (B < 1 || n < 1 || ni < 1 || ni > n)
+        return static_cast<int>(cudaErrorInvalidValue);
+    int g = 0;
+    const cudaError_t err = b1_geometry_here(n, B, ni, &g);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return with_geometry(g, [&](auto geo) {
+        using Geo = decltype(geo);
+        const int values[] = {g, Geo::R, Geo::RT, Geo::TJ, Geo::NBUF};
+        for (int k = 0; k < 5; ++k) out[k] = values[k];
+        return 0;
+    });
+}
+
+// What the card says of the one-device dsqrt step kernel that B scenario
+// rows of n bodies take (forces.cuh kernel_info): out = {registers, local
+// bytes, threads, resident blocks an SM, rows a block, columns a tile,
+// NBODY_SHARED_RCP, the geometry's index, rows a compute thread, term
+// tiles in the ring, shared memory bytes a block}. Returns the CUDA error,
+// or 0.
+extern "C" int graded_step_f64_info(int B, int n, int* out) {
+    if (B < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+    int g = 0;
+    const cudaError_t err = b1_geometry_here(n, B, n, &g);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return with_geometry(g, [&](auto geo) {
+        using Geo = decltype(geo);
+        const int e = nbody::kernel_info(step_kernel<Geo>(true, false),
+                                         Geo::THREADS, Geo::R, out);
+        if (e != 0) return e;
+        const int more[] = {Geo::TJ, NBODY_SHARED_RCP, g, Geo::RT,
+                            Geo::NBUF,
+                            static_cast<int>(sizeof(typename Geo::Smem))};
+        for (int k = 0; k < 6; ++k) out[5 + k] = more[k];
+        return 0;
+    });
 }
 
 extern "C" int fold_floor_f64_launch(const double* x, double* out,

@@ -7,7 +7,9 @@ runs at first use and again whenever a source, a shared header (`*.cuh`)
 or the flags change (a SHA-256 stamp beside the library). Nothing here
 runs at import: this module is imported on machines that have no nvcc.
 `build_variant` builds another copy of the sources into a library of its
-own, for a measurement that times a variant against this build.
+own, for a measurement that times a variant against this build;
+`build_chunk_variants` builds several copies of the binary64 graded step
+alone at once.
 """
 
 from __future__ import annotations
@@ -79,17 +81,25 @@ def _nvcc_all(cmds) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def _compile_and_link(csrc: str, lib_path: str) -> None:
-    """Compile `SOURCES` from the directory csrc and link them into
+def _compile_and_link(libs: dict, sources: tuple = SOURCES) -> None:
+    """Compile `sources` from each directory of libs ({lib_path: csrc}),
+    every nvcc process at once, and link each directory's objects into its
     lib_path."""
-    with tempfile.TemporaryDirectory(dir=os.path.dirname(lib_path)) as tmp:
-        objs = [os.path.join(tmp, name + ".o") for name in SOURCES]
-        _nvcc_all([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj,
-                   os.path.join(csrc, name)]
-                  for name, obj in zip(SOURCES, objs))
-        lib = os.path.join(tmp, os.path.basename(lib_path))
-        _nvcc_all([[_nvcc(), "-shared", "-o", lib, *objs]])
-        os.replace(lib, lib_path)
+    with tempfile.TemporaryDirectory(
+            dir=os.path.dirname(next(iter(libs)))) as tmp:
+        compiles, links = [], []
+        for k, (lib_path, csrc) in enumerate(libs.items()):
+            objs = [os.path.join(tmp, f"{k}_{name}.o") for name in sources]
+            compiles += [[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj,
+                          os.path.join(csrc, name)]
+                         for name, obj in zip(sources, objs)]
+            lib = os.path.join(tmp, f"{k}_{os.path.basename(lib_path)}")
+            links.append((lib, lib_path,
+                          [_nvcc(), "-shared", "-o", lib, *objs]))
+        _nvcc_all(compiles)
+        _nvcc_all([cmd for _, _, cmd in links])
+        for lib, lib_path, _ in links:
+            os.replace(lib, lib_path)
 
 
 @functools.cache
@@ -107,7 +117,7 @@ def load() -> ctypes.CDLL:
             with open(stamp) as f:
                 fresh = f.read().strip() == digest
         if not fresh:
-            _compile_and_link(CSRC, LIB_PATH)
+            _compile_and_link({LIB_PATH: CSRC})
             with open(stamp, "w") as f:
                 f.write(digest)
     finally:
@@ -120,8 +130,28 @@ def build_variant(csrc: str, lib_path: str) -> ctypes.CDLL:
     csrc (e.g. with one constant edited, to time a variant against this
     one in one process), into lib_path, a name no other loaded library
     has; load it and declare its entry points."""
-    _compile_and_link(csrc, lib_path)
+    _compile_and_link({lib_path: csrc})
     return declare(ctypes.CDLL(lib_path))
+
+
+def build_chunk_variants(libs: dict) -> dict:
+    """Build `graded_step_f64.cu` alone from each directory of libs
+    ({lib_path: csrc}, copies of the sources edited, or another checkout's
+    own), all at once, each into its lib_path; load each and declare the
+    entry points of `graded_step_f64.cu` it has as this build declares
+    them (`graded_chunk_f64_launch`'s signature every checkout since the
+    graded graphs shares). Returns {lib_path: lib}."""
+    _compile_and_link(libs, ("graded_step_f64.cu",))
+    ref = load()
+    out = {}
+    for lib_path in libs:
+        lib = out[lib_path] = ctypes.CDLL(lib_path)
+        for name in ("graded_chunk_f64_launch", "graded_step_f64_geometry",
+                     "graded_step_f64_info"):
+            if hasattr(lib, name):
+                fn, want = getattr(lib, name), getattr(ref, name)
+                fn.restype, fn.argtypes = want.restype, want.argtypes
+    return out
 
 
 def declare(lib):
@@ -192,8 +222,14 @@ def declare(lib):
     # what the card says of a binary64 force kernel (int out[7])
     lib.accel_f64_info.restype = ctypes.c_int
     lib.accel_f64_info.argtypes = [ctypes.c_void_p]
+    # B1''s launch-a-step kernel at (B, n) (int out[11]); its geometry at
+    # (B, n, ni) (int out[5])
     lib.graded_step_f64_info.restype = ctypes.c_int
-    lib.graded_step_f64_info.argtypes = [ctypes.c_void_p]
+    lib.graded_step_f64_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
+    lib.graded_step_f64_geometry.restype = ctypes.c_int
+    lib.graded_step_f64_geometry.argtypes = [*[ctypes.c_int] * 3,
+                                             ctypes.c_void_p]
     # what the resident chunk is at (B, n, D) (int out[9])
     lib.graded_resident_f64_info.restype = ctypes.c_int
     lib.graded_resident_f64_info.argtypes = [*[ctypes.c_int] * 3,

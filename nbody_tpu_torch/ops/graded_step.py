@@ -498,6 +498,21 @@ def _launch(fn, mode: int, c: Carry, s0: int, s1: int) -> None:
         _replay_chunk(fn, mode, c, s0, s1, _build.load())
 
 
+def b1_geometry(lib, B: int, n: int, ni: int) -> str:
+    """The name of the geometry of B1''s launch-a-step kernel that the
+    library `lib` takes at B scenario rows of n bodies, ni of them a launch
+    (csrc/graded_step_f64.cu graded_step_f64_geometry),
+    `producer_<R>x<RT>_tile<TJ>_ring<NBUF>`: R rows a block, RT of them a
+    compute thread, TJ columns a tile, NBUF term tiles in the ring."""
+    out = (ctypes.c_int * 5)()
+    rc = lib.graded_step_f64_geometry(B, n, ni, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"graded_step_f64_geometry({B}, {n}, {ni}) "
+                           f"failed: CUDA error {rc}")
+    _, R, RT, TJ, NBUF = out
+    return f"producer_{R}x{RT}_tile{TJ}_ring{NBUF}"
+
+
 def _replay_chunk(fn, mode: int, c: Carry, s0: int, s1: int, lib) -> None:
     """The replay for steps s0+1..s1 of the graph captured from one C call
     of `graded_chunk_*_launch` (K step launches and one check launch, or
@@ -505,8 +520,9 @@ def _replay_chunk(fn, mode: int, c: Carry, s0: int, s1: int, lib) -> None:
     result from the second buffer into (c.q, c.v); the arrivals stay in
     c.arr (csrc/graded.cuh). The launches the C call reported at the
     capture are added to `fn.launches`; a chunk of one launch is the
-    resident kernel's, counted in the request's record. `lib`: the kernel
-    library, or a stand-in in the CPU tests."""
+    resident kernel's, counted in the request's record, and a binary64
+    chunk of more its rows x steps under B1''s geometry (`b1_geometry`).
+    `lib`: the kernel library, or a stand-in in the CPU tests."""
     K = s1 - s0
     if is_dd(c.q):
         launch, ints = lib.graded_chunk_dd_launch, ()
@@ -515,6 +531,7 @@ def _replay_chunk(fn, mode: int, c: Carry, s0: int, s1: int, lib) -> None:
     else:
         launch, ints = lib.graded_chunk_f64_launch, (DIST3_CODES[c.dist3],)
     q, v, arr = c.q, c.v, c.arr
+    B, n = q.shape[0], q.shape[1]
     flag = c.hit if mode == P3 else c.p3_hit
     hit = None if mode == P3 else c.hit
     tensors = (c.m0, c.m_half, c.fst, c.md2, c.others, arr, hit, flag,
@@ -526,8 +543,8 @@ def _replay_chunk(fn, mode: int, c: Carry, s0: int, s1: int, lib) -> None:
         arr2 = arr if mode == P3 else arr.clone()   # P3's arr: read only
         head = (_ptr(q), _ptr(v), _ptr(q2), _ptr(v2),
                 *(_ptr(x) for x in tensors[:6]), _ptr(arr2),
-                *(_ptr(x) for x in tensors[6:]), mode, q.shape[0],
-                q.shape[1], c.others.shape[0] - 1, c.planet, *ints, *reals,
+                *(_ptr(x) for x in tensors[6:]), mode, B, n,
+                c.others.shape[0] - 1, c.planet, *ints, *reals,
                 word.data_ptr(), K)
         launched = ctypes.c_int(0)
 
@@ -542,6 +559,8 @@ def _replay_chunk(fn, mode: int, c: Carry, s0: int, s1: int, lib) -> None:
                 q.copy_(q2)
                 v.copy_(v2)
         body.launched = launched
+        body.geometry = b1_geometry(lib, B, n, n) \
+            if fn is graded_step_f64 else None
         return body
 
     body = _graphs(c).run(_key("chunk", mode, c, K, ints, (q, v) + tensors),
@@ -549,6 +568,8 @@ def _replay_chunk(fn, mode: int, c: Carry, s0: int, s1: int, lib) -> None:
     fn.launches += body.launched.value
     if body.launched.value == 1:
         profiling.resident_chunk()
+    elif body.geometry is not None:
+        profiling.b1_launch_rows(body.geometry, B * K)
 
 
 def graded_step_f64(mode: int, c: Carry, s0: int, s1: int) -> None:
@@ -739,6 +760,8 @@ def _replay_rows(fn, mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
                 q.copy_(q2)
         body.gathers = 0 if gather is None else K
         body.gather_bytes = body.gathers * q.numel() * q.element_size()
+        body.geometry = None if fn is not graded_step_f64 else \
+            b1_geometry(lib, q.shape[2], blocks.n, ni)
         return body
 
     extra = (*ints, blocks, roles, gather)
@@ -746,6 +769,8 @@ def _replay_rows(fn, mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,
                           build, q.device, s0)
     fn.launches += K * len(mine) + 1
     profiling.gathered(body.gathers, body.gather_bytes)
+    if body.geometry is not None:
+        profiling.b1_launch_rows(body.geometry, q.shape[2] * K)
 
 
 def graded_rows_chunk(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,

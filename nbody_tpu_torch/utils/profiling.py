@@ -37,6 +37,10 @@ its own):
     resident_chunks       the graded chunks that ran as one launch of the
                   resident kernel (csrc/graded_step_f64.cu;
                   `resident_chunk`)
+    b1_row_steps  rows x steps of the binary64 graded chunks that ran a
+                  launch a step, by the geometry of B1''s step kernel that
+                  the library chose for their shape (`b1_launch_rows`;
+                  csrc/graded_step_f64.cu graded_step_f64_geometry)
     gathers, gather_bytes the all_gathers of blocks over the mesh's 'body'
                   axis that the chunks enqueued (`gathered`: a step's
                   positions, a chunk's carry, the plain versions' forces;
@@ -95,6 +99,7 @@ class Request:
         self.captures = 0
         self.capture_s = 0.0
         self.resident_chunks = 0
+        self.b1_row_steps: dict = {}
         self.gathers = 0
         self.gather_bytes = 0
         self.stream: torch.cuda.Stream | None = None    # the last chunk's
@@ -242,6 +247,16 @@ def resident_chunk() -> None:
         req.resident_chunks += 1
 
 
+def b1_launch_rows(geometry: str, row_steps: int) -> None:
+    """Count `row_steps` rows x steps of binary64 graded chunks that ran a
+    launch a step in B1''s geometry `geometry`, in the open request;
+    nothing outside one."""
+    req = getattr(_open, "request", None)
+    if req is not None:
+        req.b1_row_steps[geometry] = \
+            req.b1_row_steps.get(geometry, 0) + row_steps
+
+
 def gathered(count: int, nbytes: int) -> None:
     """Count `count` all_gathers whose gathered outputs hold `nbytes` bytes
     in all in the open request; nothing outside one."""
@@ -273,7 +288,8 @@ def _reduce(req: Request) -> dict:
             "gaps_s": span_s - chunk_s, "span_s": span_s,
             "outside_s": wall_s - span_s, "row_steps": dict(req.row_steps),
             "captures": req.captures, "capture_s": req.capture_s,
-            "resident_chunks": req.resident_chunks, "gathers": req.gathers,
+            "resident_chunks": req.resident_chunks,
+            "b1_row_steps": dict(req.b1_row_steps), "gathers": req.gathers,
             "gather_bytes": req.gather_bytes}
 
 

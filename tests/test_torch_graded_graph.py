@@ -88,6 +88,16 @@ class FakeGradedLib:
     def graded_chunk_f32_launch(self, *a):
         return self._chunk(*a[:21], *a[-4:])
 
+    # B1''s launch-a-step geometry: one of the library's producers, at
+    # every shape (its choice by shape is held on a card)
+    geometry = (1, 8, 2, 64, 3)
+
+    def graded_step_f64_geometry(self, B, n, ni, out):
+        assert 1 <= ni <= n and B >= 1
+        for k, x in enumerate(self.geometry):
+            ctypes.c_int.from_address(out + 4 * k).value = x
+        return 0
+
     def graded_chunk_dd_launch(self, *a):
         return self._chunk(*a[:21], *a[-4:])
 
