@@ -151,7 +151,8 @@ def _solve(args, cfg, device, mesh) -> int:
     from .ops.accel_dd import accel_dd
     from .ops.accel_f32 import accel_f32
     from .ops.accel_f64 import accel_f64
-    from .ops.graded_step import GRAPHS, graded_step_dd, graded_step_f32, \
+    from .ops.chunking import GRAPHS
+    from .ops.graded_step import graded_step_dd, graded_step_f32, \
         graded_step_f64
     from .ops.sim_step import sim_chunk_dd, sim_chunk_f32, sim_chunk_f64, \
         sim_rows_chunk_dd, sim_rows_chunk_f32, sim_rows_chunk_f64

@@ -1,10 +1,11 @@
 """Scenario orchestration: the reference's `main` (hw5.cu:532-615).
 
 `solve_scene` answers the three problems of a scene: through the fused
-one-pass solver for small scenes with devices, otherwise through Problems
-1+2 and then Problem 3; on a mesh of ranks always the phased drivers
-(parallel/solver_sharded.py). Selecting the winning device is O(device
-count) host work.
+one-pass solver for small scenes with devices on one device, otherwise
+through the phased drivers of models/direct_sum, Problems 1+2 and then
+Problem 3, on the layout the call asks for: one device
+(direct_sum.OneDevice) or a mesh of ranks (parallel/solver_sharded.Layout).
+Selecting the winning device is O(device count) host work.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import torch
 from .config import DEFAULT_CONFIG, PRECISIONS, SimConfig
 from .device import resolve_device
 from .io import Scene
-from .models.direct_sum import DD, run_problem_3, run_problems_12, \
-    run_problems_123
+from .models.direct_sum import DD, OneDevice, run_problem_3, \
+    run_problems_12, run_problems_123
 from .ops.forces import check_dist3
 from .physics import missile_cost_for_arrival, oscillation_table
 from .utils import profiling
@@ -136,24 +137,19 @@ def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
         check_dist3(cfg.dist3_mode, precision)
     if mesh is not None:
         from .parallel.mesh import check_mesh
-        from .parallel.solver_sharded import solve_scene_sharded
+        from .parallel.solver_sharded import Layout
 
         check_mesh(mesh)
-
-        ans, _ = solve_scene_sharded(run_scene, run_cfg, mesh, dtype=dtype,
-                                     tile=tile,
-                                     checkpoint_path=checkpoint_path)
-        return Answers(rescale.unscale_length(ans.min_dist),
-                       ans.hit_time_step, ans.gravity_device_id,
-                       ans.missile_cost)
-    dev = resolve_device(device)
+        layout = Layout(mesh, run_scene.n, dtype, tile)
+    else:
+        layout = OneDevice(resolve_device(device))
 
     with profiling.span("oscillation_table"):
         fst = oscillation_table(cfg)
-    if scene.device_cnt > 0 and scene.n <= FUSED_MAX_N:
+    if mesh is None and scene.device_cnt > 0 and scene.n <= FUSED_MAX_N:
         with profiling.span("problems_fused"):
-            p123 = run_problems_123(run_scene, fst, run_cfg, device=dev,
-                                    dtype=dtype,
+            p123 = run_problems_123(run_scene, fst, run_cfg,
+                                    device=layout.dev, dtype=dtype,
                                     checkpoint_path=checkpoint_path)
         winner = (-1, 0.0)
         if p123.hit_time_step != -2:
@@ -162,13 +158,13 @@ def solve_scene(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
                        p123.hit_time_step, *winner)
 
     with profiling.span("problem_1_2"):
-        p12 = run_problems_12(run_scene, fst, run_cfg, device=dev,
+        p12 = run_problems_12(run_scene, fst, run_cfg, layout=layout,
                               dtype=dtype, checkpoint_path=checkpoint_path)
     winner = (-1, 0.0)
     if p12.hit_time_step != -2 and scene.device_cnt > 0:
         with profiling.span("problem_3"):
-            saved = run_problem_3(run_scene, p12, fst, run_cfg, device=dev,
-                                  dtype=dtype,
+            saved = run_problem_3(run_scene, p12, fst, run_cfg,
+                                  layout=layout, dtype=dtype,
                                   checkpoint_path=checkpoint_path)
         winner = select_winner(scene, p12.arrivals, saved, cfg)
     return Answers(rescale.unscale_length(p12.min_dist), p12.hit_time_step,

@@ -9,15 +9,24 @@
     all rows as one batch, or one at a time in cost order (n >= 256).
   * `run_problems_123` — the three problems in one pass for small scenes:
     each Problem-3 row mirrors the Problem-2 row until its missile arrives.
+    One device only.
+
+The two phased drivers hold the only chunk loop, P2 early exit, checkpoint
+code and Problem-3 eligibility of the port, and run on a layout: where a
+carry's rows live and how a chunk advances. `OneDevice` keeps every row on
+one device and advances a chunk by one `graded_chunk` call; the mesh's
+layout (parallel/solver_sharded `Layout`) splits the rows over a
+('scen', 'body') grid of ranks. The drivers make the same calls on both.
 
 Semantics are the serial spec's (native/core.cc): strict `<` for min, hit
 and arrival; step 0 checked; no arrival at step 0 (the missile has covered
 no distance). Decisions stay on the device: the host reads the hit step and
-the Problem-3 flags once per `cfg.chunk_steps`, never per step. Each chunk
-is one call of `ops/graded_step.graded_chunk`: on a card, one C call that
-launches the graded step kernel once per step (force, Euler update and the
-checks); on the CPU, the same steps as a loop of PyTorch ops. The loops
-run exactly the steps there are (no masking of steps past the horizon).
+the Problem-3 flags once per `cfg.chunk_steps`, never per step. On one
+device each chunk is one call of `ops/graded_step.graded_chunk`: on a
+card, one replay of the graded step kernel's launches (force, Euler update
+and the checks); on the CPU, the same steps as a loop of PyTorch ops. The
+loops run exactly the steps there are (no masking of steps past the
+horizon).
 
 `dtype` is the state's representation: float64 (the graded answer, kernel
 B1's force, d2^1.5 in `cfg.dist3_mode`'s form), float32 (the throughput
@@ -36,13 +45,15 @@ semantics, nbody_tpu/models/direct_sum.py:538-623, 748-800, 912-986): a
 resumed run is bitwise equal to one that never stopped. Problem 3 keeps
 sidecars, `<path>.p3.npz` (the running scenarios) and
 `<path>.p3progress.json` (the finished ones of the sequential strategy).
-A checkpoint of another scene, config, representation or driver, or one
-beyond the horizon, is refused with ValueError.
+A checkpoint of another scene, config, representation, driver or layout
+(the mesh's fingerprint adds ':mesh'), or one beyond the horizon, is
+refused with ValueError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -249,10 +260,60 @@ def _chunks(t0: int, cfg: SimConfig):
         t0 = s1
 
 
+class OneDevice:
+    """The phased drivers' layout on one device: every row of a carry
+    there, a chunk one `graded_chunk` call. The mesh's is
+    parallel/solver_sharded `Layout`; both offer what the drivers call."""
+
+    suffix = ""             # of the checkpoints' fingerprint
+    writes = True           # this process writes the checkpoints
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+
+    @staticmethod
+    def p3_strategy(n: int) -> str:
+        """Problem 3's strategy 'auto'."""
+        return "sequential" if n >= 256 else "batched"
+
+    @staticmethod
+    def split(mode: int, c: Carry) -> Carry:
+        """The part of the whole carry c that this process advances."""
+        return c
+
+    @staticmethod
+    def early_exit(c: Carry) -> None:
+        """The P2 early exit: drop the devices-on row once it is hit (one
+        host read while it runs)."""
+        if c.q.shape[0] == 2 and int(c.hit) != -2:
+            c.q, c.v, c.m0, c.m_half = (x[:1] for x in
+                                        (c.q, c.v, c.m0, c.m_half))
+
+    @staticmethod
+    def advance(mode: int, c: Carry, s0: int, s1: int) -> None:
+        graded_chunk(mode, c, s0, s1)
+
+    @staticmethod
+    def finite(c: Carry, context: str) -> None:
+        _guard_finite(c.q, *([] if c.min_d2 is None else [c.min_d2]),
+                      context=context)
+
+    @staticmethod
+    def live(c: Carry) -> bool:
+        """Whether a Problem-3 scenario is undecided (one host read)."""
+        return not bool(c.hit.all())
+
+    @staticmethod
+    def whole(mode: int, c: Carry) -> Carry:
+        """The whole carry in this layout: c itself."""
+        return c
+
+
 def run_problems_12(scene: Scene, fst: np.ndarray, cfg: SimConfig, *,
-                    device: torch.device, dtype=F64,
+                    layout, dtype=F64,
                     checkpoint_path: str | None = None) -> P12Result:
-    """Problems 1+2 and the Problem-3 arrival snapshots.
+    """Problems 1+2 and the Problem-3 arrival snapshots, on `layout`
+    (`OneDevice`, or the mesh's parallel/solver_sharded `Layout`).
 
     P2 early exit (hw5.cu:398-402, core.cc:202): once the host sees the
     hit at a chunk boundary, the devices-on row is dropped and the
@@ -261,39 +322,41 @@ def run_problems_12(scene: Scene, fst: np.ndarray, cfg: SimConfig, *,
 
     checkpoint_path: the carry is saved after every chunk (phase 'p12',
     or 'p1' once the devices-on row is dropped) and resumed from."""
-    c = _p12_carry(scene, fst, cfg, device, dtype)
+    L = layout
+    c = _p12_carry(scene, fst, cfg, L.dev, dtype)
     t0, fingerprint = 0, None
     if checkpoint_path is not None:
-        fingerprint = _fingerprint(scene, cfg, dtype)
+        fingerprint = _fingerprint(scene, cfg, dtype) + L.suffix
         t0 = _resume_p12(c, _load(checkpoint_path, fingerprint, cfg.n_steps),
                          checkpoint_path)
+    c = L.split(P12, c)
     for s0, s1 in _chunks(t0, cfg):
-        # one host read per chunk: the P2 early exit
-        if c.q.shape[0] == 2 and int(c.hit) != -2:
-            c.q, c.v, c.m0, c.m_half = (x[:1] for x in
-                                        (c.q, c.v, c.m0, c.m_half))
-        graded_chunk(P12, c, s0, s1)
+        L.early_exit(c)
+        L.advance(P12, c, s0, s1)
         if dtype == torch.float32:
-            _guard_finite(c.q, c.min_d2, context=f"in P1/P2 after step {s1}")
+            L.finite(c, context=f"in P1/P2 after step {s1}")
         if checkpoint_path is not None:
-            save_checkpoint(
-                checkpoint_path, step=s1, q=_host(c.q), v=_host(c.v),
-                extra={"min_d2": _host(c.min_d2),
-                       "hit": _host(c.hit).astype(np.int32),
-                       "arr": _host(c.arr).astype(np.int32),
-                       "q_snap": _host(c.q_snap),
-                       "v_snap": _host(c.v_snap)},
-                meta={"n_steps": cfg.n_steps, "fingerprint": fingerprint,
-                      "phase": "p1" if c.q.shape[0] == 1 else "p12"})
-    return P12Result(min_dist=_min_dist(c.min_d2),
-                     hit_time_step=int(c.hit), arrivals=c.arr.cpu().numpy(),
-                     q_snaps=c.q_snap, v_snaps=c.v_snap)
+            w = L.whole(P12, c)
+            if L.writes:
+                save_checkpoint(
+                    checkpoint_path, step=s1, q=_host(w.q), v=_host(w.v),
+                    extra={"min_d2": _host(w.min_d2),
+                           "hit": _host(w.hit).astype(np.int32),
+                           "arr": _host(w.arr).astype(np.int32),
+                           "q_snap": _host(w.q_snap),
+                           "v_snap": _host(w.v_snap)},
+                    meta={"n_steps": cfg.n_steps, "fingerprint": fingerprint,
+                          "phase": "p1" if w.q.shape[0] == 1 else "p12"})
+    w = L.whole(P12, c)
+    return P12Result(min_dist=_min_dist(w.min_d2),
+                     hit_time_step=int(w.hit), arrivals=w.arr.cpu().numpy(),
+                     q_snaps=w.q_snap.to(L.dev), v_snaps=w.v_snap.to(L.dev))
 
 
 def run_problem_3(scene: Scene, p12: P12Result, fst: np.ndarray,
-                  cfg: SimConfig, *, device: torch.device,
-                  strategy: str = "auto", dtype=F64,
-                  checkpoint_path: str | None = None) -> np.ndarray:
+                  cfg: SimConfig, *, layout, strategy: str = "auto",
+                  dtype=F64, checkpoint_path: str | None = None
+                  ) -> np.ndarray:
     """(D,) bool: True where destroying device k saves the planet.
 
     Only a device whose missile arrives (arrival != -2) no later than the
@@ -305,7 +368,9 @@ def run_problem_3(scene: Scene, p12: P12Result, fst: np.ndarray,
                      stopping at the first savior: cost grows with the
                      arrival step, so later ones cannot win (the
                      reference's PROBLEM3_BREAK pruning, hw5.cu:574-585).
-      'auto'       — sequential for n >= 256, batched below.
+      'auto'       — the layout's: on one device sequential for n >= 256,
+                     batched below; on the mesh batched (the mesh runs no
+                     other).
 
     checkpoint_path: the running scenarios' carry goes to
     `<path>.p3.npz` after every chunk, and the sequential strategy records
@@ -317,17 +382,19 @@ def run_problem_3(scene: Scene, p12: P12Result, fst: np.ndarray,
         return saved
     eligible = (p12.arrivals != -2) & (p12.arrivals <= p12.hit_time_step)
     if strategy == "auto":
-        strategy = "sequential" if scene.n >= 256 else "batched"
+        strategy = layout.p3_strategy(scene.n)
     if strategy not in ("batched", "sequential"):
         raise ValueError(f"unknown Problem-3 strategy {strategy!r}")
     ck = None
     if checkpoint_path is not None:
-        ck = (checkpoint_path + ".p3.npz", _fingerprint(scene, cfg, dtype))
+        ck = (checkpoint_path + ".p3.npz",
+              _fingerprint(scene, cfg, dtype) + layout.suffix)
+    run = functools.partial(_run_p3_scenarios, scene, p12, fst, cfg,
+                            layout=layout, dtype=dtype, ck=ck)
     if strategy == "batched":
         idx = np.nonzero(eligible)[0]
         if idx.size:
-            saved[idx] = _run_p3_scenarios(scene, p12, fst, cfg, idx,
-                                           device=device, dtype=dtype, ck=ck)
+            saved[idx] = run(idx)
         return saved
     # finished scenarios: {k: (saved, horizon)}. A hit is final at any
     # horizon; "never hit" only up to the horizon it was reached at, so a
@@ -354,9 +421,7 @@ def run_problem_3(scene: Scene, p12: P12Result, fst: np.ndarray,
         if int(k) in done:
             saved[k] = done[int(k)][0]
         else:
-            saved[k] = _run_p3_scenarios(scene, p12, fst, cfg,
-                                         np.asarray([k]), device=device,
-                                         dtype=dtype, ck=ck)[0]
+            saved[k] = run(np.asarray([k]))[0]
             if progress is not None:
                 # the finished scenario's state file goes before it is
                 # recorded: the other order could leave, after a crash in
@@ -374,15 +439,15 @@ def run_problem_3(scene: Scene, p12: P12Result, fst: np.ndarray,
 
 
 def _run_p3_scenarios(scene: Scene, p12: P12Result, fst: np.ndarray,
-                      cfg: SimConfig, idx: np.ndarray, *,
-                      device: torch.device, dtype,
+                      cfg: SimConfig, idx: np.ndarray, *, layout, dtype,
                       ck: tuple[str, str] | None = None) -> np.ndarray:
     """Resumed simulations for the eligible device slots `idx`; returns
     (len(idx),) bool: never hit from the arrival step to the horizon.
     ck = (path, fingerprint): the carry is saved there after every chunk,
     under the count of chunks begun (the JAX package's layout) with the
     step it stands at in meta 't', and resumed from."""
-    c = _p3_carry(scene, p12, fst, cfg, idx, device, dtype)
+    L = layout
+    c = _p3_carry(scene, p12, fst, cfg, idx, L.dev, dtype)
     cs = cfg.chunk_steps
     # skip-ahead: chunks before the earliest arrival leave every row frozen
     t0 = int(p12.arrivals[idx].min()) // cs * cs
@@ -391,8 +456,8 @@ def _run_p3_scenarios(scene: Scene, p12: P12Result, fst: np.ndarray,
         step, q, v, extra, meta = load_checkpoint(ck[0])
         if meta.get("fingerprint") != ck[1] or meta.get("idx") != idx_key:
             raise ValueError(f"P3 checkpoint {ck[0]} was written for a "
-                             "different scene/config/precision/scenario set; "
-                             "refusing to resume")
+                             "different scene/config/precision/layout/"
+                             "scenario set; refusing to resume")
         t0 = int(meta.get("t", int(step) * cs))
         if t0 > cfg.n_steps:
             raise ValueError(f"P3 checkpoint {ck[0]} is at step {t0}, beyond "
@@ -400,19 +465,22 @@ def _run_p3_scenarios(scene: Scene, p12: P12Result, fst: np.ndarray,
         c.q = _restore(q, c.q, "q", ck[0])
         c.v = _restore(v, c.v, "v", ck[0])
         c.hit = _restore(extra["hit_flag"], c.hit, "hit_flag", ck[0])
+    c = L.split(P3, c)
     for s0, s1 in _chunks(t0, cfg):
-        if bool(c.hit.all()):            # read once per chunk
+        if not L.live(c):
             break
-        graded_chunk(P3, c, s0, s1)
+        L.advance(P3, c, s0, s1)
         if dtype == torch.float32:
-            _guard_finite(c.q, context=f"in P3 after step {s1}")
+            L.finite(c, context=f"in P3 after step {s1}")
         if ck is not None:
-            save_checkpoint(ck[0], step=-(-s1 // cs), q=_host(c.q),
-                            v=_host(c.v),
-                            extra={"hit_flag": _host(c.hit)},
-                            meta={"fingerprint": ck[1], "idx": idx_key,
-                                  "t": s1})
-    return ~c.hit.cpu().numpy()
+            w = L.whole(P3, c)
+            if L.writes:
+                save_checkpoint(ck[0], step=-(-s1 // cs), q=_host(w.q),
+                                v=_host(w.v),
+                                extra={"hit_flag": _host(w.hit)},
+                                meta={"fingerprint": ck[1], "idx": idx_key,
+                                      "t": s1})
+    return ~_host(L.whole(P3, c).hit)
 
 
 @dataclasses.dataclass

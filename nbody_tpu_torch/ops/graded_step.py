@@ -16,14 +16,14 @@ closing check launch, no host synchronisation, as one replay of a CUDA
 graph; the binary64 fused driver's chunk at small n is one launch of its
 resident kernel, which the C call chooses by shape. The graph is captured
 from one C call of the chunk's launches at the first chunk of its shape
-and replayed for every chunk of that shape (`ChunkGraphs`): the kernels
-read the chunk's base step from a device word that the host writes before
-each replay. The wrappers `graded_step_f64`, `graded_step_f32` and
+and replayed for every chunk of that shape (ops/chunking `ChunkGraphs`): the
+kernels read the chunk's base step from a device word that the host writes
+before each replay. The wrappers `graded_step_f64`, `graded_step_f32` and
 `graded_step_dd` count the launches a replay makes, as the C call reports
-them, `GRAPHS` the replays and captures, and a request's record the chunks
-the resident kernel ran (utils/profiling). Only a tensor that lies on the CPU
-goes to the plain version,
-the per-step PyTorch loop `_p12_chunk_ref`, `_p3_chunk_ref` or
+them, ops/chunking `GRAPHS` (also reachable here) the replays and captures,
+and a request's record the chunks the resident kernel ran
+(utils/profiling). Only a tensor that lies on the CPU goes to the plain
+version, the per-step PyTorch loop `_p12_chunk_ref`, `_p3_chunk_ref` or
 `_p123_chunk_ref`, whose force is `ops/integrate`'s (kernels B1, B2 and B4
 on a card, their plain versions on the CPU). Both compute the same bits:
 every op of the kernels is the plain loop's op in the same order
@@ -31,25 +31,25 @@ every op of the kernels is the plain loop's op in the same order
 
 The mesh (parallel/solver_sharded.py) runs its steps in every
 representation through `graded_rows_chunk(mode, c, s0, s1, blocks,
-gather)`: a rank
-computes the force of its own rows [r0, r0 + ni) against every body,
-updates those rows, and one `gather` (an in-place all_gather over 'body')
-puts the ranks' rows together; every rank then checks the whole state. The
-state lies in the `Blocks` layout that the all_gather makes, (k, 2, B, ni,
-3): block r holds q and then v of the rows [r * ni, (r + 1) * ni) of every
-scenario row (`to_blocks`, `from_blocks`). On a CUDA tensor each step is
-one C call that launches the graded step kernel on the rank's rows (the
-one-device kernel, of which one device is the case k = 1) and one call of
-`gather`; a chunk ends with one check launch. That loop, the in-place NCCL
-all_gathers with it, is captured into a CUDA graph once and replayed for
-every chunk of its shape, as on one device. On the CPU the plain
-version makes the same step in the same order: the rows' force through the
-cross form of kernel B1 or B4 (float32: B2's cross form in the mesh's
-ordered sum at `tile`, ops/accel_f32.accel_f32_ordered, bitwise the
-ordered ring's and at tile 128 B2's own), their update, the gather, and
-the checks of `_p12_chunk_ref` or `_p3_chunk_ref`. Where the scenarios are
-split across ranks, the P1+P2 `roles` name the rows a rank holds. There is
-one copy of the graded checks.
+gather)`: a rank computes the force of its own rows [r0, r0 + ni) against
+every body, updates those rows, and one `gather` (an in-place all_gather
+over 'body') puts the ranks' rows together; every rank then checks the
+whole state. The state lies in the layout that the all_gather makes
+(ops/chunking `Blocks`), (k, 2, B, ni, 3): block r holds q and then v of the
+rows [r * ni, (r + 1) * ni) of every scenario row (`to_blocks`,
+`from_blocks`). On a CUDA tensor each step is one C call that launches the
+graded step kernel on the rank's rows (the one-device kernel, of which one
+device is the case k = 1) and one call of `gather`; a chunk ends with one
+check launch. That loop, the in-place NCCL all_gathers with it, is
+captured into a CUDA graph once and replayed for every chunk of its shape,
+as on one device. On the CPU the plain version makes the same step in the
+same order: the rows' force through the cross form of kernel B1 or B4
+(float32: B2's cross form in the mesh's ordered sum at `tile`,
+ops/accel_f32.accel_f32_ordered, bitwise the ordered ring's and at tile
+128 B2's own), their update, the gather, and the checks of
+`_p12_chunk_ref` or `_p3_chunk_ref`. Where the scenarios are split across
+ranks, the P1+P2 `roles` name the rows a rank holds. There is one copy of
+the graded checks.
 
 The JAX package runs the same chunks as compiled scans
 (nbody_tpu/models/direct_sum.py `_p12_chunk`, `_p123_chunk`, `_p3_chunks`).
@@ -60,7 +60,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import time
 from typing import Callable
 
 import torch
@@ -70,6 +69,9 @@ from . import ddfloat as ddf
 from .accel_dd import accel_dd, eps2_dd
 from .accel_f32 import TILE_J, accel_f32, accel_f32_ordered, eps2_f32
 from .accel_f64 import accel_f64
+# GRAPHS is also read here, as ops.graded_step.GRAPHS (benchmark/traffic)
+from .chunking import GRAPHS, Blocks, ChunkGraphs, _stream, from_blocks, \
+    to_blocks
 from .forces import DIST3_CODES, sq_dist
 from .integrate import scalar, symplectic_euler_step, \
     symplectic_euler_step_dd
@@ -371,88 +373,6 @@ def _check(mode: int, c: Carry, s0: int, s1: int,
                          f"got {c.dist3!r}")
 
 
-@dataclasses.dataclass
-class GraphCounts:
-    """The CUDA graphs of the graded chunks and of simulate's chunks
-    (ops/sim_step) in this process, counted once each by
-    `ChunkGraphs.run` (`--stats` prints them): replays, one a chunk;
-    captures, one a chunk shape and set of buffers; and the host seconds
-    the captures took, their buffers' allocation included."""
-    replays: int = 0
-    captures: int = 0
-    capture_s: float = 0.0
-
-
-GRAPHS = GraphCounts()
-
-
-def capture_graph(body: Callable[[], None]) -> Callable[[], None]:
-    """Capture body(), one chunk's launches, into a CUDA graph on the
-    stream that torch.cuda.graph makes current, and return its replay. A
-    capture that fails raises: nothing goes back to the launches one by
-    one."""
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        body()
-    return graph.replay
-
-
-def _set_word(word: torch.Tensor, s0: int) -> None:
-    """Write the base step s0 into a chunk's device word, ordered on the
-    current stream before the replay: a copy from a fresh pinned host
-    tensor (torch's host allocator does not hand its memory out again
-    before the copy has run)."""
-    if word.is_cuda:
-        word.copy_(torch.full((1,), s0, dtype=torch.int32, pin_memory=True),
-                   non_blocking=True)
-    else:
-        word.fill_(s0)
-
-
-class ChunkGraphs:
-    """A carry's captured chunks: one CUDA graph a chunk shape, replayed
-    for every chunk of that shape; the graded carries' (`Carry.graphs`)
-    and simulate's (ops/sim_step `SimCarry.graphs`).
-
-    A graph bakes its kernels' arguments, so every buffer it touches keeps
-    its address for the graph's life: the carry's tensors and the entry's
-    own buffers (the second of the state's ping-pong pair, the second
-    arrival buffer and the word of the chunk's base step), which the entry
-    holds. The kernels read the base step from that word (csrc/graded.cuh),
-    which `run` writes before each replay, so one graph serves every chunk
-    of its K steps wherever it starts. `key` is all that decides the
-    captured work (driver, representation, shape, K, the force's dist3 or
-    tile, the layout, the constants and every buffer's address): a chunk
-    whose key differs captures anew. Plain Python: `capture(body) ->
-    replay` is `capture_graph` on a card and a stand-in in the CPU
-    tests."""
-
-    def __init__(self, capture: Callable = capture_graph):
-        self.capture = capture
-        self.entries: dict = {}
-
-    def run(self, key: tuple, build: Callable, device: torch.device,
-            s0: int) -> Callable:
-        """Replay the graph of `key` for the chunk from step s0, first
-        capturing build(word)(), the chunk's launches reading their base
-        step from `word`, if there is none (inside a request, a capture
-        span: utils/profiling.capture); returns the captured body."""
-        entry = self.entries.get(key)
-        if entry is None:
-            t = time.perf_counter()
-            with profiling.capture():
-                word = torch.zeros(1, dtype=torch.int32, device=device)
-                body = build(word)
-                entry = self.entries[key] = (self.capture(body), word, body)
-            GRAPHS.captures += 1
-            GRAPHS.capture_s += time.perf_counter() - t
-        replay, word, body = entry
-        _set_word(word, s0)
-        replay()
-        GRAPHS.replays += 1
-        return body
-
-
 def _graphs(c: Carry) -> ChunkGraphs:
     if c.graphs is None:
         c.graphs = ChunkGraphs()
@@ -461,11 +381,6 @@ def _graphs(c: Carry) -> ChunkGraphs:
 
 def _ptr(x: torch.Tensor | None) -> int | None:
     return None if x is None else x.data_ptr()
-
-
-def _stream(x: torch.Tensor) -> int | None:
-    """The current stream of x's card (the capture's, inside a capture)."""
-    return torch.cuda.current_stream().cuda_stream if x.is_cuda else None
 
 
 def _constants(c: Carry) -> tuple:
@@ -605,46 +520,6 @@ def graded_step_dd(mode: int, c: Carry, s0: int, s1: int) -> None:
 graded_step_f64.launches = 0
 graded_step_f32.launches = 0
 graded_step_dd.launches = 0
-
-
-@dataclasses.dataclass(frozen=True)
-class Blocks:
-    """The mesh's split of n bodies over k body ranks: k blocks of ni =
-    ceil(n / k) rows, block r the rows [r * ni, (r + 1) * ni) cut at n
-    (the last blocks may be short or empty). `mine`: the blocks one call of
-    the step computes, the rank's own, or all k where one process stands in
-    for the k ranks (and nothing is gathered)."""
-    n: int
-    k: int
-    mine: tuple
-
-    @property
-    def ni(self) -> int:
-        return -(-self.n // self.k)
-
-    def rows(self, r: int) -> tuple:
-        """(first, end) of block r's real rows."""
-        r0 = min(r * self.ni, self.n)
-        return r0, min(r0 + self.ni, self.n)
-
-
-def to_blocks(q: torch.Tensor, v: torch.Tensor, k: int) -> torch.Tensor:
-    """The one-device state q, v (B, n, 3), or (B, n, 3, 2) double-double,
-    in k blocks: (k, 2, B, ni, 3[, 2]), block r holding the rows
-    [r * ni, (r + 1) * ni) of q and then of v, rows past n zero (the layout
-    that an all_gather of the ranks' blocks makes)."""
-    B, n = q.shape[:2]
-    ni = -(-n // k)
-    qv = q.new_zeros((2, B, k * ni) + tuple(q.shape[2:]))
-    qv[0, :, :n] = q
-    qv[1, :, :n] = v
-    return qv.unflatten(2, (k, ni)).movedim(2, 0).contiguous()
-
-
-def from_blocks(qv: torch.Tensor, n: int) -> tuple:
-    """The one-device (q, v) of n bodies from a state in blocks."""
-    x = qv.movedim(0, 2).flatten(2, 3)[:, :, :n]
-    return x[0].contiguous(), x[1].contiguous()
 
 
 def _rows_ref(mode: int, c: Carry, s0: int, s1: int, blocks: Blocks,

@@ -30,7 +30,7 @@ its plain version (`sim_chunk_f64_ref`, `sim_chunk_f32_ref`,
 `sim_chunk_dd_ref`): the eager loop with the force kernel's plain twin as
 its force.
 
-Given `graphs` (ops/graded_step `ChunkGraphs`, which `simulate` passes
+Given `graphs` (ops/chunking `ChunkGraphs`, which `simulate` passes
 for a chunk shape that repeats), a CUDA chunk is one replay of a CUDA
 graph, captured from the chunk's C call at the first chunk of its shape:
 the kernels read the chunk's base step from a device word written before
@@ -42,7 +42,7 @@ fresh pair.
 The mesh (`simulate(mesh=)`) runs the row-range form of the same kernels
 (`sim_rows_chunk_f64`, `sim_rows_chunk_f32`, `sim_rows_chunk_dd`): every
 rank holds the whole carry, and a step is one launch on the rank's rows
-(those of its block of ops/graded_step `Blocks`) and one in-place
+(those of its block of ops/chunking `Blocks`) and one in-place
 all_gather (`gather`) of the positions the next step's force reads
 (csrc/sim_step.cuh has the layout); a chunk starts with one launch that
 forms the first step's inputs and ends with one all_gather of the carry
@@ -71,7 +71,7 @@ from .accel_dd import accel_dd_ref, eps2_dd
 from .accel_f32 import TILE_J, accel_f32_ordered, accel_f32_ref, eps2_f32
 from .accel_f64 import accel_f64_ref
 from .forces import DIST3_CODES
-from .graded_step import Blocks, ChunkGraphs, _stream
+from .chunking import Blocks, ChunkGraphs, _stream
 from .integrate import accel, kdk_leapfrog_step, kdk_leapfrog_step_dd, \
     scalar, symplectic_euler_step, symplectic_euler_step_dd
 

@@ -1,6 +1,7 @@
-"""The mesh of ranks: body-sharded forces and the graded solve over a
-('scen', 'body') grid of torch.distributed processes (mesh.py, sharded.py,
-solver_sharded.py), the port of `nbody_tpu.parallel`."""
+"""The mesh of ranks: body-sharded forces, and the layout on which the
+graded solve's drivers run over a ('scen', 'body') grid of
+torch.distributed processes (mesh.py, sharded.py, solver_sharded.py), the
+port of `nbody_tpu.parallel`."""
 
 from .mesh import init_process_group, make_mesh, parse_mesh_spec
 from .sharded import make_sharded_step, ring_accel_ordered, \

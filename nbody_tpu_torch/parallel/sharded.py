@@ -49,7 +49,7 @@ import torch.distributed as dist
 
 from ..ops.accel_f32 import TILE_J, accel_f32
 from ..ops.accel_f64 import accel_f64
-from ..ops.graded_step import Blocks
+from ..ops.chunking import Blocks
 from ..ops.integrate import scalar
 from .mesh import axis, mesh_device
 

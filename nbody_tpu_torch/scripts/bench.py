@@ -52,7 +52,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.plummer import plummer_scene
-from ..ops.graded_step import GRAPHS
+from ..ops.chunking import GRAPHS
 from ..ops.sim_step import SimCarry, sim_chunk_f32
 
 G, EPS, DT = 6.674e-11, 1e-3, 60.0

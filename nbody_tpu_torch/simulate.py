@@ -45,7 +45,7 @@ from .ops.integrate import accel, accel_dd_state
 from .ops.accel_dd import accel_dd
 from .ops.accel_f32 import accel_f32_ordered
 from .ops.accel_f64 import accel_f64
-from .ops.graded_step import ChunkGraphs
+from .ops.chunking import ChunkGraphs
 from .ops.sim_step import SimCarry, m_eff_dd, rows_force, sim_chunk_dd, \
     sim_chunk_f32, sim_chunk_f64, sim_rows_chunk_dd, sim_rows_chunk_f32, \
     sim_rows_chunk_f64

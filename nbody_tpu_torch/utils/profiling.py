@@ -8,7 +8,7 @@ call, or an engine call with no entry open. Under it lie the phases
 problem_3, write_output), a span for every chunk that a driver enqueues
 (`chunk`: `ops/graded_step.graded_chunk` and `graded_rows_chunk`,
 `simulate._march`) and one for every capture of a chunk's CUDA graph
-(`capture`: `ops/graded_step.ChunkGraphs.run`). Outside an open request
+(`capture`: `ops/chunking.ChunkGraphs.run`). Outside an open request
 nothing is recorded.
 
 A chunk on a card is timed on the card's clock: two timing events from a

@@ -50,6 +50,7 @@ from nbody_tpu_torch.cli import main
 from nbody_tpu_torch.io import write_input
 from nbody_tpu_torch.models import direct_sum as ds
 from nbody_tpu_torch.ops import _build
+from nbody_tpu_torch.ops import chunking
 from nbody_tpu_torch.ops import graded_step as gs
 from nbody_tpu_torch.utils import profiling
 
@@ -120,7 +121,7 @@ def test_stats_count_the_row_steps_of_each_geometry(tmp_path, monkeypatch,
 
     def chunk_fn(mode, c, s0, s1):
         gs._check(mode, c, s0, s1)
-        c.graphs = c.graphs or gs.ChunkGraphs(capture=StandIn())
+        c.graphs = c.graphs or chunking.ChunkGraphs(capture=StandIn())
         lib = FakeGradedLib(c)
         lib.resident_max_n = 0 if path == "step" else RESIDENT_MAX_N
         with profiling.chunk(gs.DRIVERS[mode], c.q.shape[0], s1 - s0,
@@ -150,9 +151,9 @@ def test_rows_chunk_counts_its_geometry(dtype):
 
     c = ds._p12_carry(SCENE, oscillation_table(cfg), cfg,
                       torch.device("cpu"), dtype)
-    blocks = gs.Blocks(SCENE.n, 2, (0, 1))
-    c.q, c.v = gs.to_blocks(c.q, c.v, 2), None
-    c.graphs = gs.ChunkGraphs(capture=StandIn())
+    blocks = chunking.Blocks(SCENE.n, 2, (0, 1))
+    c.q, c.v = chunking.to_blocks(c.q, c.v, 2), None
+    c.graphs = chunking.ChunkGraphs(capture=StandIn())
     lib = FakeGradedLib(c)
     asked = []
     report = lib.graded_step_f64_geometry
@@ -343,12 +344,12 @@ def test_mesh_form_bitwise_plain_chunk_on_card(cuda, k):
     assert _geometry_index(B, n, ni) == b1_expected(n, B, ni, _sms())
     make = _make("p12", n, B, "dsqrt")
     got, want = make(cuda), make(cuda)
-    got.q, got.v = gs.to_blocks(got.q, got.v, k), None
-    blocks = gs.Blocks(n, k, tuple(range(k)))
+    got.q, got.v = chunking.to_blocks(got.q, got.v, k), None
+    blocks = chunking.Blocks(n, k, tuple(range(k)))
     for s0, s1 in [(0, 150), (150, 300)]:
         gs.graded_rows_chunk(gs.P12, got, s0, s1, blocks)
         gs._REF[gs.P12](want, s0, s1)
-    got.q, got.v = gs.from_blocks(got.q, n)
+    got.q, got.v = chunking.from_blocks(got.q, n)
     for name in ("q", "v", "arr", "hit", "min_d2", "q_snap", "v_snap"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
 

@@ -35,6 +35,7 @@ STEPS, CHUNK = 240, 16
 CFG = SimConfig(n_steps=STEPS, chunk_steps=CHUNK)
 PRECISIONS = ["f64", "f32", "tf3"]
 CPU = torch.device("cpu")
+ONE = ds.OneDevice(CPU)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -113,10 +114,10 @@ def test_p12_resume_runs_only_the_steps_left(phased, tmp_path, monkeypatch):
     _solve(scene, 96, checkpoint_path=ck)
     calls = _interrupting(monkeypatch, None, None)
     fst = oscillation_table(CFG)
-    resumed = ds.run_problems_12(scene, fst, CFG, device=CPU,
+    resumed = ds.run_problems_12(scene, fst, CFG, layout=ONE,
                                  checkpoint_path=ck)
     assert calls[gs.P12] == (STEPS - 96) // CHUNK
-    whole = ds.run_problems_12(scene, fst, CFG, device=CPU)
+    whole = ds.run_problems_12(scene, fst, CFG, layout=ONE)
     assert resumed.min_dist == whole.min_dist
     assert resumed.hit_time_step == whole.hit_time_step
     np.testing.assert_array_equal(resumed.arrivals, whole.arrivals)
@@ -294,7 +295,7 @@ def test_jax_layout_both_ways(tmp_path):
     jcfg = dataclasses.replace(JaxSimConfig(), n_steps=48,
                                dist3_mode="dsqrt")
     mine, theirs = str(tmp_path / "port.ck"), str(tmp_path / "jax.ck")
-    ds.run_problems_12(_port(s), oscillation_table(cfg), cfg, device=CPU,
+    ds.run_problems_12(_port(s), oscillation_table(cfg), cfg, layout=ONE,
                        checkpoint_path=mine)
     jax_p12(s, jax_fst(jcfg), jcfg, host_chunk=CHUNK, checkpoint_path=theirs)
     a, b = jax_load(mine), jax_load(theirs)
@@ -306,9 +307,9 @@ def test_jax_layout_both_ways(tmp_path):
     assert a[4] == b[4]                  # n_steps, fingerprint, phase
     full = dataclasses.replace(cfg, n_steps=96)
     fst = oscillation_table(full)
-    resumed = ds.run_problems_12(_port(s), fst, full, device=CPU,
+    resumed = ds.run_problems_12(_port(s), fst, full, layout=ONE,
                                  checkpoint_path=theirs)
-    own = ds.run_problems_12(_port(s), fst, full, device=CPU)
+    own = ds.run_problems_12(_port(s), fst, full, layout=ONE)
     assert resumed.min_dist == pytest.approx(own.min_dist, rel=1e-9)
     np.testing.assert_array_equal(resumed.arrivals, own.arrivals)
 

@@ -43,6 +43,7 @@ import torch
 from nbody_tpu_torch import SimConfig, solve_scene
 from nbody_tpu_torch.models import direct_sum as ds
 from nbody_tpu_torch.ops import _build
+from nbody_tpu_torch.ops import chunking
 from nbody_tpu_torch.ops import graded_step as gs
 from nbody_tpu_torch.physics import oscillation_table
 
@@ -194,7 +195,7 @@ def _kernel(c: gs.Carry):
 def _run(mode, c, chunks, lib=None, capture=None):
     """The graph path's chunks on a CPU carry; returns the capture."""
     capture = capture or StandIn()
-    c.graphs = c.graphs or gs.ChunkGraphs(capture=capture)
+    c.graphs = c.graphs or chunking.ChunkGraphs(capture=capture)
     lib = lib or FakeGradedLib(c)
     for s0, s1 in chunks:
         gs._check(mode, c, s0, s1)
@@ -215,7 +216,7 @@ def _assert_bitwise(got, want):
 
 
 def _counts():
-    return (gs.GRAPHS.replays, gs.GRAPHS.captures)
+    return (chunking.GRAPHS.replays, chunking.GRAPHS.captures)
 
 
 MODES = {"p12": gs.P12, "p3": gs.P3, "p123": gs.P123}
@@ -357,7 +358,7 @@ def test_drivers_through_the_graph_path_bitwise_plain(monkeypatch, dtype,
     def chunk_fn(mode, c, s0, s1):
         gs._check(mode, c, s0, s1)
         if c.graphs is None:
-            c.graphs = gs.ChunkGraphs(capture=StandIn())
+            c.graphs = chunking.ChunkGraphs(capture=StandIn())
             captures.append(c.graphs)
         gs._replay_chunk(_kernel(c), mode, c, s0, s1, FakeGradedLib(c))
 
@@ -384,13 +385,13 @@ def test_drivers_through_the_graph_path_bitwise_plain(monkeypatch, dtype,
 def _rows_carry(dtype=torch.float64, k: int = 2):
     c = _carry(gs.P12, dtype)
     n = c.q.shape[1]
-    c.q, c.v = gs.to_blocks(c.q, c.v, k), None
-    return c, gs.Blocks(n, k, tuple(range(k)))
+    c.q, c.v = chunking.to_blocks(c.q, c.v, k), None
+    return c, chunking.Blocks(n, k, tuple(range(k)))
 
 
 def _run_rows(c, blocks, chunks, lib, capture, gather=None, tile=128,
               mine=None):
-    c.graphs = c.graphs or gs.ChunkGraphs(capture=capture)
+    c.graphs = c.graphs or chunking.ChunkGraphs(capture=capture)
     b = blocks if mine is None else dataclasses.replace(blocks, mine=mine)
     for s0, s1 in chunks:
         gs._replay_rows(_kernel(c), gs.P12, c, s0, s1, b, gather, (0, 1),
@@ -455,7 +456,7 @@ def test_capture_is_not_run_at_capture():
     captures: the chunk runs once, at its replay."""
     c = _carry(gs.P12)
     lib = FakeGradedLib(c)
-    c.graphs = gs.ChunkGraphs(capture=lambda body: (lambda: None))
+    c.graphs = chunking.ChunkGraphs(capture=lambda body: (lambda: None))
     gs._replay_chunk(gs.graded_step_f64, gs.P12, c, 0, 5, lib)
     assert lib.chunks == []
 

@@ -47,6 +47,7 @@ from nbody_tpu_torch.cli import main
 from nbody_tpu_torch.io import write_input
 from nbody_tpu_torch.models import direct_sum as ds
 from nbody_tpu_torch.ops import _build
+from nbody_tpu_torch.ops import chunking
 from nbody_tpu_torch.ops import graded_step as gs
 from nbody_tpu_torch.utils import profiling
 
@@ -81,7 +82,7 @@ def _chunks_through(c: gs.Carry, chunks: list, lib, graph: bool) -> None:
     for s0, s1 in chunks:
         if not graph:
             c.graphs = None
-        c.graphs = c.graphs or gs.ChunkGraphs(
+        c.graphs = c.graphs or chunking.ChunkGraphs(
             capture=StandIn() if graph else (lambda body: body))
         gs._check(gs.P123, c, s0, s1)
         gs._replay_chunk(gs.graded_step_f64, gs.P123, c, s0, s1, lib)
@@ -134,7 +135,7 @@ def test_replay_adds_what_the_capture_reported():
             calls.append(body.launched.value)
             return lambda: None
 
-    c.graphs = gs.ChunkGraphs(capture=CaptureOnce())
+    c.graphs = chunking.ChunkGraphs(capture=CaptureOnce())
     before = gs.graded_step_f64.launches
     for s0, s1 in [(0, 5), (5, 10), (10, 15)]:
         gs._replay_chunk(gs.graded_step_f64, gs.P123, c, s0, s1, lib)
@@ -162,7 +163,7 @@ def test_stats_print_the_resident_chunks(tmp_path, monkeypatch, capsys,
     def chunk_fn(mode, c, s0, s1):
         gs._check(mode, c, s0, s1)
         chunks.append(s1 - s0)
-        c.graphs = c.graphs or gs.ChunkGraphs(capture=StandIn())
+        c.graphs = c.graphs or chunking.ChunkGraphs(capture=StandIn())
         lib = FakeGradedLib(c)
         lib.resident_max_n = 0 if limit == "step" else RESIDENT_MAX_N
         with profiling.chunk(gs.DRIVERS[mode], c.q.shape[0], s1 - s0,

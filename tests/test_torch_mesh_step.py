@@ -36,6 +36,7 @@ import torch
 
 from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.models import direct_sum as ds
+from nbody_tpu_torch.ops import chunking
 from nbody_tpu_torch.ops import graded_step as gs
 from nbody_tpu_torch.physics import oscillation_table
 import torch_mesh_workers as W
@@ -122,8 +123,8 @@ def _run(case: str, spec: tuple, precision: str, device,
     if roles is not None:
         _keep(c, [0 if case == "p1" else 1], False)
     if k is not None:
-        c.q, c.v = gs.to_blocks(c.q, c.v, k), None
-        blocks = gs.Blocks(spec[1], k, tuple(range(k)))
+        c.q, c.v = chunking.to_blocks(c.q, c.v, k), None
+        blocks = chunking.Blocks(spec[1], k, tuple(range(k)))
     for s0, s1 in CHUNKS:
         if case == "p12_exit" and s0:
             _keep(c, [0], k is not None)
@@ -137,7 +138,7 @@ def _run(case: str, spec: tuple, precision: str, device,
             gs.graded_rows_chunk(mode, c, s0, s1, blocks, roles=roles,
                                  tile=tile)
     if k is not None:
-        c.q, c.v = gs.from_blocks(c.q, spec[1])
+        c.q, c.v = chunking.from_blocks(c.q, spec[1])
     return c
 
 
@@ -213,7 +214,7 @@ def test_cases_exercise_the_checks():
 def test_layout_round_trip(n, k, tail):
     rng = np.random.RandomState(n * 10 + k)
     q, v = (torch.from_numpy(rng.randn(2, n, 3, *tail)) for _ in range(2))
-    qv = gs.to_blocks(q, v, k)
+    qv = chunking.to_blocks(q, v, k)
     ni = -(-n // k)
     assert qv.shape == (k, 2, 2, ni, 3, *tail) and qv.is_contiguous()
     for r in range(k):
@@ -221,13 +222,13 @@ def test_layout_round_trip(n, k, tail):
         assert torch.equal(qv[r, 0, :, :r1 - r0], q[:, r0:r1])
         assert torch.equal(qv[r, 1, :, :r1 - r0], v[:, r0:r1])
         assert not qv[r, :, :, r1 - r0:].any()      # padding
-    q2, v2 = gs.from_blocks(qv, n)
+    q2, v2 = chunking.from_blocks(qv, n)
     assert torch.equal(q2, q) and torch.equal(v2, v)
 
 
 def _p12_blocks(k: int = 2):
     c = _carry((SEED, 20, DEVICES), "dsqrt", gs.P12, torch.device("cpu"))
-    c.q, c.v = gs.to_blocks(c.q, c.v, k), None
+    c.q, c.v = chunking.to_blocks(c.q, c.v, k), None
     return c
 
 
@@ -257,7 +258,7 @@ def test_rows_chunk_refuses(change, kw, match):
         c.q = c.q[:, :, :, :-1].contiguous()
     elif change == "p3":
         mode = gs.P3
-    blocks = gs.Blocks(20, 2, kw.get("mine", (0, 1)))
+    blocks = chunking.Blocks(20, 2, kw.get("mine", (0, 1)))
     with pytest.raises((ValueError, TypeError), match=match):
         gs.graded_rows_chunk(mode, c, 0, 1, blocks, kw.get("gather"),
                              kw.get("roles"))
@@ -269,7 +270,7 @@ def test_rows_chunk_refuses_cuda_without_a_card():
     c = _p12_blocks()
     with pytest.raises(ValueError, match="cuda"):
         gs._launch_rows(gs.graded_step_f64, gs.P12, c, 0, 1,
-                        gs.Blocks(20, 2, (0, 1)), None, (0, 1), 128)
+                        chunking.Blocks(20, 2, (0, 1)), None, (0, 1), 128)
 
 
 def _card_params():
@@ -312,7 +313,7 @@ def test_rows_launchers_refuse_bad_blocks_and_roles_on_card(cuda,
     dd = precision == "tf3"
     n, k = 20, 3
     ni = -(-n // k)
-    qv = gs.to_blocks(c.q, c.v, k)
+    qv = chunking.to_blocks(c.q, c.v, k)
     out = torch.zeros_like(qv)
     launch = lib.graded_rows_dd_step if dd else lib.graded_rows_f64_step
     p = lambda x: x.data_ptr()   # noqa: E731

@@ -34,6 +34,7 @@ import dataclasses
 import pytest
 import torch
 
+from nbody_tpu_torch.ops import chunking
 from nbody_tpu_torch.ops import graded_step as gs
 from nbody_tpu_torch.ops.accel_f32 import accel_f32
 import test_torch_mesh_step as M
@@ -144,9 +145,9 @@ def test_f32_rows_chunk_groups_across_sub_tiles(monkeypatch, tile):
 def test_f32_rows_chunk_refuses_a_bad_tile(tile):
     c = M._carry((M.SEED, 20, M.DEVICES), "f32", gs.P12,
                  torch.device("cpu"))
-    c.q, c.v = gs.to_blocks(c.q, c.v, 2), None
+    c.q, c.v = chunking.to_blocks(c.q, c.v, 2), None
     with pytest.raises(ValueError, match="tile"):
-        gs.graded_rows_chunk(gs.P12, c, 0, 1, gs.Blocks(20, 2, (0, 1)),
+        gs.graded_rows_chunk(gs.P12, c, 0, 1, chunking.Blocks(20, 2, (0, 1)),
                              tile=tile)
 
 
@@ -170,13 +171,13 @@ def test_f32_rows_kernel_bitwise_plain_and_one_device_on_card(cuda, case,
     roles = {"p1": (0, None), "p2": (None, 0)}.get(case)
     if roles is not None:
         M._keep(plain, [0 if case == "p1" else 1], False)
-    plain.q, plain.v = gs.to_blocks(plain.q, plain.v, k), None
+    plain.q, plain.v = chunking.to_blocks(plain.q, plain.v, k), None
     for s0, s1 in M.CHUNKS:
         gs._rows_ref(mode, plain, s0, s1,
-                     gs.Blocks(spec[1], k, tuple(range(k))), None,
+                     chunking.Blocks(spec[1], k, tuple(range(k))), None,
                      roles or ((None, None) if mode == gs.P3 else
                                (0, 1)), tile)
-    plain.q, plain.v = gs.from_blocks(plain.q, spec[1])
+    plain.q, plain.v = chunking.from_blocks(plain.q, spec[1])
     assert [f.name for f in dataclasses.fields(got)
             if isinstance(getattr(got, f.name), torch.Tensor)
             and not torch.equal(getattr(got, f.name),

@@ -44,10 +44,11 @@ import torch
 
 from nbody_tpu_torch import simulate
 from nbody_tpu_torch.config import DEFAULT_CONFIG
+from nbody_tpu_torch.ops import chunking
 from nbody_tpu_torch.ops import graded_step as gs
 from nbody_tpu_torch.ops import sim_step as ss
 from nbody_tpu_torch.ops.forces import DIST3_CODES
-from nbody_tpu_torch.ops.graded_step import Blocks
+from nbody_tpu_torch.ops.chunking import Blocks
 from nbody_tpu_torch.parallel.spawn import run_ranks
 from nbody_tpu_torch.simulate import _plan
 from nbody_tpu_torch.utils.rescale import compute_rescale
@@ -156,7 +157,7 @@ class StandIn:
 
 
 def _counts():
-    return (gs.GRAPHS.replays, gs.GRAPHS.captures)
+    return (chunking.GRAPHS.replays, chunking.GRAPHS.captures)
 
 
 def _setup(monkeypatch, precision, integrator, compensated):
@@ -202,7 +203,7 @@ def test_chunks_in_fixed_slots_bitwise_plain(monkeypatch, precision,
     c, m0, m_half, fst, kw, lib = _setup(monkeypatch, precision, integrator,
                                          compensated)
     capture, fn = StandIn(), _ONE[precision]
-    graphs = gs.ChunkGraphs(capture=capture)
+    graphs = chunking.ChunkGraphs(capture=capture)
     chunks = [(0, K), (K, 2 * K), (2 * K, 3 * K)]
     before, launches, addresses = _counts(), fn.launches, []
     for s0, s1 in chunks:
@@ -225,7 +226,7 @@ def test_tail_chunk_captures_anew(monkeypatch):
     own, and the chunks of 7 after it replay the first again."""
     c, m0, m_half, fst, kw, lib = _setup(monkeypatch, "f64", "euler", False)
     capture = StandIn()
-    graphs = gs.ChunkGraphs(capture=capture)
+    graphs = chunking.ChunkGraphs(capture=capture)
     for s0, s1, made in [(0, 7, 1), (7, 14, 1), (14, 17, 2), (17, 24, 2),
                          (24, 31, 2)]:
         ss.sim_chunk_f64(c, m0, m_half, fst, s0, s1, graphs=graphs, **kw)
@@ -241,7 +242,7 @@ def test_a_changed_variant_captures_anew(monkeypatch, change):
     is called with), bitwise the plain chunks making the same change."""
     c, m0, m_half, fst, kw, lib = _setup(monkeypatch, "f64", "euler", False)
     capture = StandIn()
-    graphs = gs.ChunkGraphs(capture=capture)
+    graphs = chunking.ChunkGraphs(capture=capture)
     ss.sim_chunk_f64(c, m0, m_half, fst, 0, 5, graphs=graphs, **kw)
     want = _plain("f64", "euler", False, [(0, 5)])
     slots = c.slots.data_ptr()
@@ -308,7 +309,7 @@ def test_simulate_through_the_graph_path_bitwise_plain(monkeypatch,
         cfg = compute_rescale(scene, eps=cfg.eps).apply_cfg(cfg)
     lib = FakeLib(cfg.eps)
     monkeypatch.setattr(sim_module, "ChunkGraphs",
-                        lambda: gs.ChunkGraphs(capture=StandIn()))
+                        lambda: chunking.ChunkGraphs(capture=StandIn()))
     got = {}
     for chunk in (5, 12):
         with monkeypatch.context() as mp:
@@ -336,7 +337,7 @@ def test_replay_raises_on_a_failed_launch(monkeypatch):
     before = ss.sim_chunk_f64.launches
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         ss.sim_chunk_f64(c, m0, m_half, fst, 0, 5,
-                         graphs=gs.ChunkGraphs(capture=StandIn()), **kw)
+                         graphs=chunking.ChunkGraphs(capture=StandIn()), **kw)
     assert ss.sim_chunk_f64.launches == before
 
 
@@ -344,7 +345,7 @@ def test_capture_is_not_run_at_capture(monkeypatch):
     """The stand-in, like a CUDA graph capture, runs nothing when it
     captures: the chunk runs once, at its replay."""
     c, m0, m_half, fst, kw, lib = _setup(monkeypatch, "f64", "euler", False)
-    graphs = gs.ChunkGraphs(capture=lambda body: (lambda: None))
+    graphs = chunking.ChunkGraphs(capture=lambda body: (lambda: None))
     ss.sim_chunk_f64(c, m0, m_half, fst, 0, 5, graphs=graphs, **kw)
     assert lib.chunks == []
 
@@ -367,7 +368,7 @@ def _rows_graph(monkeypatch, precision, integrator, compensated, chunks,
         kw["tile"] = tile
     lib = FakeLib(inp["kw"]["eps"])
     W.fake_kernels(monkeypatch.setattr, lib)
-    graphs = graphs or gs.ChunkGraphs(capture=StandIn())
+    graphs = graphs or chunking.ChunkGraphs(capture=StandIn())
     for s0, s1 in chunks:
         _ROWS[precision](c, m0, m_half, fst, s0, s1, blocks=blocks,
                          gather=gather, graphs=graphs, **kw)

@@ -40,6 +40,7 @@ import pytest
 import torch
 
 from nbody_tpu_torch.ops import _build
+from nbody_tpu_torch.ops import chunking
 from nbody_tpu_torch.ops import graded_step as gs
 from nbody_tpu_torch.ops import sim_step as ss
 import test_torch_sim_graph as SG
@@ -81,7 +82,7 @@ def test_launches_counted_a_chunk(monkeypatch, precision, integrator,
     if not persistent:
         lib.persistent_max_n = c.q.shape[0] - 1
     fn = _ONE[precision]
-    g = gs.ChunkGraphs(capture=SG.StandIn()) if graphs else None
+    g = chunking.ChunkGraphs(capture=SG.StandIn()) if graphs else None
     before = fn.launches
     for s0, s1 in CHUNKS:
         fn(c, m0, m_half, fst, s0, s1, graphs=g, **kw)
@@ -114,7 +115,7 @@ def test_grid_cap_is_in_the_graph_key(monkeypatch, precision):
     c, m0, m_half, fst, kw, lib = SG._setup(monkeypatch, precision,
                                             "euler", False)
     capture = SG.StandIn()
-    graphs = gs.ChunkGraphs(capture=capture)
+    graphs = chunking.ChunkGraphs(capture=capture)
     for (s0, s1), cap, made in zip([(0, 5), (5, 10), (10, 15)], (0, 3, 0),
                                    (1, 2, 2)):
         _ONE[precision](c, m0, m_half, fst, s0, s1, graphs=graphs,

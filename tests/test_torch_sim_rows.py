@@ -36,7 +36,7 @@ import torch
 from nbody_tpu_torch.config import SimConfig
 from nbody_tpu_torch.ops import ddfloat as ddf
 from nbody_tpu_torch.ops import sim_step as ss
-from nbody_tpu_torch.ops.graded_step import Blocks
+from nbody_tpu_torch.ops.chunking import Blocks
 from nbody_tpu_torch.parallel.spawn import run_ranks
 from nbody_tpu_torch.physics import oscillation_table
 from nbody_tpu_torch.utils.rescale import compute_rescale

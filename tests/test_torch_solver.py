@@ -20,12 +20,14 @@ from nbody_tpu.engine import solve_scene as jax_solve_scene
 from nbody_tpu.native import solve_exact
 from nbody_tpu_torch import Scene, SimConfig, solve_scene
 from nbody_tpu_torch.engine import select_winner
-from nbody_tpu_torch.models.direct_sum import (run_problem_3, run_problems_12,
+from nbody_tpu_torch.models.direct_sum import (OneDevice, run_problem_3,
+                                               run_problems_12,
                                                run_problems_123)
 from nbody_tpu_torch.physics import oscillation_table
 from test_fuzz_differential import N_STEPS, _fuzz_scene
 
 CPU = torch.device("cpu")
+ONE = OneDevice(CPU)
 CFG = SimConfig(n_steps=N_STEPS, dist3_mode="dsqrt")
 JCFG = dataclasses.replace(JaxSimConfig(), n_steps=N_STEPS, dist3_mode="dsqrt")
 # the fuzz corpus's seeds that hit within the horizon (79 and 91 are also
@@ -103,10 +105,10 @@ def test_fused_phased_and_p3_strategies_bit_equal(seed):
     keys = {_key((fused.min_dist, fused.hit_time_step,
                   *select_winner(scene, fused.arrivals, fused.saved, CFG)))}
     for cfg in (CFG, dataclasses.replace(CFG, chunk_steps=16)):
-        p12 = run_problems_12(scene, fst, cfg, device=CPU)
+        p12 = run_problems_12(scene, fst, cfg, layout=ONE)
         assert p12.hit_time_step == fused.hit_time_step
         for strategy in ("batched", "sequential"):
-            saved = run_problem_3(scene, p12, fst, cfg, device=CPU,
+            saved = run_problem_3(scene, p12, fst, cfg, layout=ONE,
                                   strategy=strategy)
             keys.add(_key((p12.min_dist, p12.hit_time_step,
                            *select_winner(scene, p12.arrivals, saved, cfg))))
@@ -134,7 +136,7 @@ def test_hit_at_step_zero():
     assert want[1] == 0
     cfg = dataclasses.replace(CFG, n_steps=30)
     fst = oscillation_table(cfg)
-    p12 = run_problems_12(scene, fst, cfg, device=CPU)
+    p12 = run_problems_12(scene, fst, cfg, layout=ONE)
     assert p12.hit_time_step == 0 and (p12.arrivals == -2).all()
     got = solve_scene(scene, cfg, device="cpu")
     assert _key(got.as_tuple()) == _key(
@@ -175,10 +177,10 @@ def test_bad_precision_dist3_and_strategy_raise():
         solve_scene(scene, dataclasses.replace(CFG, dist3_mode="pow"),
                     device="cpu")
     p12 = run_problems_12(_port(_fuzz_scene(79)), oscillation_table(CFG),
-                          CFG, device=CPU)
+                          CFG, layout=ONE)
     with pytest.raises(ValueError, match="strategy"):
         run_problem_3(_port(_fuzz_scene(79)), p12, oscillation_table(CFG),
-                      CFG, device=CPU, strategy="greedy")
+                      CFG, layout=ONE, strategy="greedy")
 
 
 def test_e64_is_the_f64_path():

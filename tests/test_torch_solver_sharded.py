@@ -261,9 +261,9 @@ def test_drivers_bitwise_equal_to_one_device(tmp_path):
                      workdir=str(tmp_path), timeout=TIMEOUT)[0]
     for precision, dtype in (("f64", torch.float64), ("tf3", ds.DD)):
         got = runs[precision]
-        dev = torch.device("cpu")
-        p12 = ds.run_problems_12(s, fst, cfg, device=dev, dtype=dtype)
-        saved = ds.run_problem_3(s, p12, fst, cfg, device=dev, dtype=dtype)
+        one = ds.OneDevice(torch.device("cpu"))
+        p12 = ds.run_problems_12(s, fst, cfg, layout=one, dtype=dtype)
+        saved = ds.run_problem_3(s, p12, fst, cfg, layout=one, dtype=dtype)
         assert got["min_dist"] == p12.min_dist
         assert got["hit"] == p12.hit_time_step
         elig = (p12.arrivals != -2) & (p12.arrivals <= p12.hit_time_step)

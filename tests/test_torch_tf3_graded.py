@@ -68,10 +68,9 @@ def test_phased_tf3_agrees_with_jax_tf3(monkeypatch):
     scene = _port(_fuzz_scene(91))
     cfg = SimConfig(n_steps=STEPS, chunk_steps=16)
     fst = oscillation_table(cfg)
-    p12 = ds.run_problems_12(scene, fst, cfg, device=torch.device("cpu"),
-                             dtype=ds.DD)
-    saved = ds.run_problem_3(scene, p12, fst, cfg,
-                             device=torch.device("cpu"), dtype=ds.DD)
+    one = ds.OneDevice(torch.device("cpu"))
+    p12 = ds.run_problems_12(scene, fst, cfg, layout=one, dtype=ds.DD)
+    saved = ds.run_problem_3(scene, p12, fst, cfg, layout=one, dtype=ds.DD)
     assert p12.q_snaps.shape == (scene.device_cnt, scene.n, 3, 2)
     _agree((p12.min_dist, p12.hit_time_step,
             *select_winner(scene, p12.arrivals, saved, cfg)), want)

@@ -34,6 +34,7 @@ from nbody_tpu_torch import config, engine, simulate
 from nbody_tpu_torch.cli import main
 from nbody_tpu_torch.io import write_input
 from nbody_tpu_torch.models import direct_sum as ds
+from nbody_tpu_torch.ops import chunking
 from nbody_tpu_torch.ops import graded_step as gs
 from nbody_tpu_torch.parallel import solver_sharded as shd
 from nbody_tpu_torch.utils import profiling
@@ -127,12 +128,12 @@ def test_simulate_records_one_capture_outside_its_chunk(monkeypatch):
     scene = W.fuzz_scene(103, 20, 3)
     monkeypatch.setattr(sys.modules["nbody_tpu_torch.simulate"],
                         "ChunkGraphs",
-                        lambda: gs.ChunkGraphs(capture=_SlowCapture()))
+                        lambda: chunking.ChunkGraphs(capture=_SlowCapture()))
     W.fake_kernels(monkeypatch.setattr, SG.FakeLib(config.DEFAULT_CONFIG.eps))
-    captures = gs.GRAPHS.captures
+    captures = chunking.GRAPHS.captures
     simulate(scene, n_steps=12, precision="f64", device="cpu", chunk=5)
     rec = profiling.RECORDS[-1]
-    assert gs.GRAPHS.captures == captures + 1
+    assert chunking.GRAPHS.captures == captures + 1
     assert rec["captures"] == 1 and rec["chunks"] == 3
     assert rec["row_steps"] == {"sim": 12}
     assert rec["outside_s"] >= rec["capture_s"] >= 0.2

@@ -79,11 +79,12 @@ def solve_jobs(axes: dict, jobs: list) -> dict:
 def drivers_jobs(axes: dict, scene, n_steps: int,
                  precisions: tuple) -> dict:
     """{precision: the mesh's P1+P2 result (host arrays) and Problem-3
-    flags}, binary64 ('f64') or double-double ('tf3')."""
+    flags}, binary64 ('f64') or double-double ('tf3'): the drivers of
+    models/direct_sum on the mesh's layout."""
     from nbody_tpu_torch import SimConfig
-    from nbody_tpu_torch.models.direct_sum import DD
-    from nbody_tpu_torch.parallel.solver_sharded import (
-        run_problem_3_sharded, run_problems_12_sharded)
+    from nbody_tpu_torch.models.direct_sum import DD, run_problem_3, \
+        run_problems_12
+    from nbody_tpu_torch.parallel.solver_sharded import Layout
     from nbody_tpu_torch.physics import oscillation_table
 
     import torch
@@ -94,9 +95,10 @@ def drivers_jobs(axes: dict, scene, n_steps: int,
     out = {}
     for precision in precisions:
         dtype = {"f64": torch.float64, "tf3": DD}[precision]
-        p12 = run_problems_12_sharded(scene, fst, cfg, mesh, dtype=dtype)
-        saved = run_problem_3_sharded(scene, p12, fst, cfg, mesh,
-                                      dtype=dtype)
+        layout = Layout(mesh, scene.n, dtype)
+        p12 = run_problems_12(scene, fst, cfg, layout=layout, dtype=dtype)
+        saved = run_problem_3(scene, p12, fst, cfg, layout=layout,
+                              dtype=dtype)
         out[precision] = {
             "min_dist": p12.min_dist, "hit": p12.hit_time_step,
             "arrivals": p12.arrivals, "q_snaps": p12.q_snaps.numpy(),
@@ -369,7 +371,7 @@ def sim_rows_emulated(axes: dict, precision: str, jobs: list,
     import torch
 
     from nbody_tpu_torch.ops import sim_step as ss
-    from nbody_tpu_torch.ops.graded_step import ChunkGraphs
+    from nbody_tpu_torch.ops.chunking import ChunkGraphs
     from nbody_tpu_torch.parallel.sharded import body_blocks
 
     mesh = _mesh(axes)
@@ -406,7 +408,7 @@ def sim_rows_gathers(axes: dict, precision: str, jobs: list,
     import torch
 
     from nbody_tpu_torch.ops import sim_step as ss
-    from nbody_tpu_torch.ops.graded_step import ChunkGraphs
+    from nbody_tpu_torch.ops.chunking import ChunkGraphs
     from nbody_tpu_torch.parallel.sharded import body_blocks
     from nbody_tpu_torch.utils import profiling
 
