@@ -163,6 +163,7 @@ def _solve(args, cfg, device, mesh) -> int:
                sim_chunk_dd, sim_rows_chunk_f64, sim_rows_chunk_f32,
                sim_rows_chunk_dd)
     launches0 = [k.launches for k in kernels]
+    pdl0 = graded_step_f64.pdl_launches
     graphs0 = (GRAPHS.replays, GRAPHS.captures, GRAPHS.capture_s)
     rank0 = mesh is None or dist.get_rank() == 0
     with profiling.entry("solve") as req:
@@ -195,6 +196,10 @@ def _solve(args, cfg, device, mesh) -> int:
             "pairs": pairs, "pairs_per_sec": pairs / rec["wall_s"],
             **{f"{k.__name__}_launches": k.launches - k0
                for k, k0 in zip(kernels, launches0)},
+            # of them, B1''s step launches made as programmatic dependents
+            # of the step before (csrc/graded.cuh graded_chunk)
+            "graded_step_f64_pdl_launches":
+                graded_step_f64.pdl_launches - pdl0,
             # the graded chunks' CUDA graphs: a replay a chunk, a capture
             # a chunk shape (ops/graded_step.ChunkGraphs)
             "graph_replays": GRAPHS.replays - graphs0[0],

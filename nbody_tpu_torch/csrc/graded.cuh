@@ -311,13 +311,61 @@ bool graded_rows_args(GradedArgs<T>& a, int p1, int p2, int ni, int k,
     return true;
 }
 
+// Programmatic dependent launch. A step kernel that a chunk launches as a
+// programmatic dependent of the step before it (graded_chunk, Waits) may
+// start while that launch's blocks still run: it reads nothing that a
+// launch of the chunk writes, and writes nothing, before graded_wait,
+// which returns once the launch before it has ended and its writes are
+// visible (at once in a plain launch). graded_launch_dependents lets the
+// next launch of the stream start once every block of this one has called
+// it or exited, so a grid of several waves is whole on the card before the
+// next one takes its free slots.
+__device__ __forceinline__ void graded_wait() {
+    cudaGridDependencySynchronize();
+}
+__device__ __forceinline__ void graded_launch_dependents() {
+    cudaTriggerProgrammaticLaunchCompletion();
+}
+
+// A launch of `kernel` on `stream`: as a programmatic dependent of the
+// launch before it where `dependent`
+// (cudaLaunchAttributeProgrammaticStreamSerialization, a programmatic
+// edge in a CUDA graph captured from the stream), else a plain launch.
+// Returns the launch error, or 0.
+template <typename Kernel, typename... Args>
+cudaError_t graded_launch(Kernel kernel, bool dependent, dim3 grid,
+                          int threads, size_t smem, cudaStream_t stream,
+                          Args... args) {
+    if (!dependent) {
+        kernel<<<grid, threads, smem, stream>>>(args...);
+        return cudaGetLastError();
+    }
+    cudaLaunchAttribute attr{};
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg{};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 // Steps s0 + 1 .. s0 + K (s0 = *a.s0, read on the card) from the state in
 // (q0, v0); the result lies in (q0, v0) if K is even, else in (q1, v1).
 // No host synchronisation, and nothing here depends on s0: a capture of
 // this loop serves every chunk of K steps. `smem`: the step kernel's
-// dynamic shared memory in bytes. Adds each launch made to *launched (a
-// host int). Returns the first launch error, or 0.
-template <typename T, typename Step, typename Check>
+// dynamic shared memory in bytes. Waits: the step kernel waits for the
+// launch before it (graded_wait) before it reads the state, so steps 2 ..
+// K are launched as programmatic dependents of the step before; the first
+// follows whatever came before the chunk and the check kernel waits for
+// the last, both plain launches. Adds each launch made to launched[0] (a
+// host int) and, where Waits, each programmatic one to launched[1].
+// Returns the first launch error, or 0.
+template <bool Waits = false, typename T, typename Step, typename Check>
 int graded_chunk(Step step, Check check, dim3 grid,
                  int threads, int check_threads, const GradedArgs<T>& a,
                  T* q0, T* v0, T* q1, T* v1, int K,
@@ -326,11 +374,13 @@ int graded_chunk(Step step, Check check, dim3 grid,
     T* v[2] = {v0, v1};
     for (int k = 1; k <= K; ++k) {
         const int in = (k - 1) & 1;
-        step<<<grid, threads, smem, stream>>>(a, q[in], v[in], q[in ^ 1],
-                                              v[in ^ 1], k, k > 1);
-        const cudaError_t err = cudaGetLastError();
+        const bool dependent = Waits && k > 1;
+        const cudaError_t err = graded_launch(
+            step, dependent, grid, threads, smem, stream, a, q[in], v[in],
+            q[in ^ 1], v[in ^ 1], k, static_cast<int>(k > 1));
         if (err != cudaSuccess) return static_cast<int>(err);
-        ++*launched;
+        ++launched[0];
+        if (dependent) ++launched[1];
     }
     const int last = K & 1;
     check<<<1, check_threads, 0, stream>>>(a, q[last], v[last], K);

@@ -58,9 +58,15 @@
 // us; with B1''s producer and the fold's tile unrolled a step takes 10.3
 // us at B = 1, fold-bound (9.3 with no terms past the ring), and 14.8 at
 // B = 2, producer-bound (12.3 with no adds). A chunk of frozen rows, the
-// kernel boundary and a block's set-up, costs 2.9 us a step. wgmma and
-// TMA do not apply: there is no fp64 matrix product and a tile is a few
-// KB.
+// kernel boundary and a block's set-up, cost 2.9 us a step. Launched as
+// programmatic dependents (graded.cuh graded_chunk), a step's blocks take
+// their slots and load what needs no state while the step before drains:
+// 9.4 us at B = 1 (8.5 with no terms past the ring), 13.9 at B = 2 (11.6
+// with no adds), frozen rows 2.3; 0.2 to 1.9 us less a step at every n =
+// 64 to 4096, B = 1, 2, 5 (2.2 us at n = 64, B = 1; 97.7 at n = 4096). The
+// rest above the fold's 5.1 us at B = 1 is the first tile's latency after
+// the wait and the boundary's own. wgmma and TMA do not apply: there is
+// no fp64 matrix product and a tile is a few KB.
 //
 // The resident chunk. Up to RESIDENT_MAX_N bodies and RES_MAX_ROWS rows,
 // where a block's part fits its shared memory, a chunk of K steps of the
@@ -115,13 +121,17 @@
 // first) 4.07, a cluster barrier every step 1.95. The resident chunk
 // loses where a block's pair work outgrows the boundary: at n = 60 4.23
 // us against 4.94, at 64 4.89 against 4.66, so RESIDENT_MAX_N = 60
-// (chip_smoke.py phase 16; PERF.md section 6).
+// (chip_smoke.py phase 16; PERF.md section 6). With that path's steps
+// launched as programmatic dependents the crossover lies between 48 and
+// 52 bodies (3.15 us against 3.30 at 48, 3.49 against 3.37 at 52; 4.23
+// against 3.42 at 60), below the limit (PERF.md section 7).
 
 #include <cuda_runtime.h>
 
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <vector>
 
 #include "f64_force.cuh"
 #include "graded.cuh"
@@ -145,17 +155,33 @@ struct GradedSources {
     double f, G;
     nbody::Blocks L;
     using Cursor = nbody::BlockCursor;
+    struct Masses {
+        double m0, mh;
+    };
     struct Source {
         double x, y, z, m0, mh;
     };
     __device__ __forceinline__ Cursor cursor(int jj) const {
         return Cursor(L, jj);
     }
-    // source j, or zeros past n
-    __device__ __forceinline__ Source at(Cursor& cur, int j, int n) const {
+    // source j's masses in a row's (m0, mh), or zeros past n; no launch of
+    // a chunk writes them
+    __device__ __forceinline__ static Masses masses(
+            const double* __restrict__ m0, const double* __restrict__ mh,
+            int j, int n) {
+        if (j >= n) return {0.0, 0.0};
+        return {m0[j], mh[j]};
+    }
+    // source j with its masses m, or zeros past n
+    __device__ __forceinline__ Source at(Cursor& cur, int j, int n,
+                                         Masses m) const {
         if (j >= n) return {0.0, 0.0, 0.0, 0.0, 0.0};
         const double* p = qb + nbody::source_at<Blocked>(cur, L, j);
-        return {p[0], p[1], p[2], m0[j], mh[j]};
+        return {p[0], p[1], p[2], m.m0, m.mh};
+    }
+    // source j, or zeros past n
+    __device__ __forceinline__ Source at(Cursor& cur, int j, int n) const {
+        return at(cur, j, n, masses(m0, mh, j, n));
     }
     __device__ __forceinline__ double gm(const Source& s) const {
         return nbody::graded_gm(s.m0, s.mh, f, G);
@@ -166,18 +192,32 @@ struct GradedSources {
 // f64_force.cuh F64Producer); dist3: the form of d2^1.5 (forces.cuh), a
 // template argument, so the dsqrt instantiation is the same code whatever
 // the other form costs; Blocked: whether the state may lie in several
-// blocks (the mesh).
+// blocks (the mesh). A chunk launches it as a programmatic dependent of
+// the step before (graded.cuh graded_chunk, STEP_WAITS): before
+// graded_wait a block reads only what no launch of the chunk writes (its
+// step, fst[t], tile 0's masses) and writes nothing.
 template <class Geo, int dist3, bool Blocked>
 __global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
 graded_step_f64_kernel(GradedArgs<double> a, const double* __restrict__ q_in,
                        const double* __restrict__ v_in,
                        double* __restrict__ q_out, double* __restrict__ v_out,
                        int off, int check) {
+    using Sources = GradedSources<Blocked>;
     __shared__ typename Geo::Smem sm;
 
     const int t = nbody::graded_step_at(a, off);
     const int b = blockIdx.y, i0 = a.r0 + blockIdx.x * Geo::R;
     const int n = a.n, live = min(Geo::R, nbody::graded_end(a) - i0);
+    const size_t mb = static_cast<size_t>(b) * n;
+    const double f = a.fst[t];
+    // tile 0's source masses first, so that their loads run under the wait
+    const bool computes = threadIdx.x < Geo::NC;
+    const int jj = threadIdx.x % Geo::TJ;
+    typename Sources::Masses m{};
+    if (computes && live > 0)
+        m = Sources::masses(a.m0 + mb, a.mh + mb, jj, n);
+    nbody::graded_launch_dependents();
+    nbody::graded_wait();   // the step before has ended: its state is here
     if (check && blockIdx.x == 0 && b == 0)
         nbody::graded_check(a, const_cast<double*>(q_in),
                             const_cast<double*>(v_in), t - 1, false);
@@ -192,15 +232,12 @@ graded_step_f64_kernel(GradedArgs<double> a, const double* __restrict__ q_in,
     const long long sb = 3LL * src * a.L.ni, own = a.L.at(0, i0);
     const long long ob = 3LL * b * a.L.ni + own;
     const double* qb = q_in + sb;
-    const size_t mb = static_cast<size_t>(b) * n;
-    const GradedSources<Blocked> sources{qb, a.m0 + mb, a.mh + mb, a.fst[t],
-                                         a.G, a.L};
-    // tile 0's source first, so that its loads run under the block's set-up
-    const bool computes = threadIdx.x < Geo::NC;
-    const int jj = threadIdx.x % Geo::TJ;
+    const Sources sources{qb, a.m0 + mb, a.mh + mb, f, a.G, a.L};
+    // tile 0's source position first, so that its loads run under the
+    // block's set-up
     auto cur = sources.cursor(jj);
-    typename GradedSources<Blocked>::Source s{};
-    if (computes) s = sources.at(cur, jj, n);
+    typename Sources::Source s{};
+    if (computes) s = sources.at(cur, jj, n, m);
     nbody::f64_rows_qi<Geo>(qb + own, live, sm);
     if (computes) {
         nbody::f64_rows_terms_rt<Geo, dist3>(sources, cur, s, n, live,
@@ -589,6 +626,11 @@ cudaError_t b1_geometry_here(int n, int B, int ni, int* g) {
 using StepKernel = void (*)(GradedArgs<double>, const double*, const double*,
                             double*, double*, int, int);
 
+// graded_step_f64_kernel waits for the launch before it (graded.cuh
+// graded_wait) before it reads the state: a chunk launches its steps 2 .. K
+// as programmatic dependents of the step before
+constexpr bool STEP_WAITS = true;
+
 // Geometry Geo's step kernel in the form (dist3, Blocked)
 template <class Geo>
 StepKernel step_kernel(bool dsqrt, bool blocked) {
@@ -611,9 +653,11 @@ StepKernel step_kernel(bool dsqrt, bool blocked) {
 // numbers). The fused driver (P123) at n <= RESIDENT_MAX_N, where its
 // carry fits a block's shared memory, is one launch of the resident chunk;
 // everything else K step launches, in the geometry b1_geometry gives the
-// shape, and a check launch. *launched (a host int) is set to the
-// launches made. Returns the first launch error, or cudaErrorInvalidValue
-// without launching.
+// shape, the second to the last each a programmatic dependent of the step
+// before (graded.cuh graded_chunk), and a check launch. launched (two host
+// ints) is set to the launches made and, of them, the step launches made
+// as programmatic dependents. Returns the first launch error, or
+// cudaErrorInvalidValue without launching.
 extern "C" int graded_chunk_f64_launch(
         double* q, double* v, double* q2, double* v2, const double* m0,
         const double* mh, const double* fst, const double* md2,
@@ -625,7 +669,7 @@ extern "C" int graded_chunk_f64_launch(
     if (!nbody::graded_args_ok(mode, B, n, D, s0, K) || launched == nullptr
         || (dist3 != nbody::DIST3_DSQRT && dist3 != nbody::DIST3_SQRT3))
         return static_cast<int>(cudaErrorInvalidValue);
-    *launched = 0;
+    launched[0] = launched[1] = 0;
     const GradedArgs<double> a = nbody::graded_args(
         m0, mh, fst, md2, others, arr, arr2, hit, flag, min_d2, q_snap,
         v_snap, mode, B, n, D, planet, G, dt, eps2, r2, s0);
@@ -648,10 +692,9 @@ extern "C" int graded_chunk_f64_launch(
     return with_geometry(g, [&](auto geo) {
         using Geo = decltype(geo);
         const dim3 grid((n + Geo::R - 1) / Geo::R, B);
-        return nbody::graded_chunk(step_kernel<Geo>(dsqrt, false),
-                                   graded_check_f64_kernel, grid,
-                                   Geo::THREADS, CHECK_THREADS, a, q, v, q2,
-                                   v2, K, s, launched);
+        return nbody::graded_chunk<STEP_WAITS>(
+            step_kernel<Geo>(dsqrt, false), graded_check_f64_kernel, grid,
+            Geo::THREADS, CHECK_THREADS, a, q, v, q2, v2, K, s, launched);
     });
 }
 
@@ -765,6 +808,59 @@ extern "C" int graded_step_f64_info(int B, int n, int* out) {
         for (int k = 0; k < 6; ++k) out[5 + k] = more[k];
         return 0;
     });
+}
+
+// The edges of graph g with their data (cudaGraphGetEdges_v2 before
+// CUDA 13, cudaGraphGetEdges from it)
+cudaError_t graph_edges(cudaGraph_t g, cudaGraphNode_t* from,
+                        cudaGraphNode_t* to, cudaGraphEdgeData* data,
+                        size_t* count) {
+#if CUDART_VERSION >= 13000
+    return cudaGraphGetEdges(g, from, to, data, count);
+#else
+    return cudaGraphGetEdges_v2(g, from, to, data, count);
+#endif
+}
+
+// What the CUDA graph `graph` (a cudaGraph_t, e.g. a chunk's capture
+// kept by torch.cuda.CUDAGraph(keep_graph=True), raw_cuda_graph()) holds:
+// out = {nodes, kernel nodes, edges, programmatic edges (a programmatic
+// dependent launch's), programmatic edges from a kernel node to a kernel
+// node}. Returns the CUDA error, or 0.
+extern "C" int graph_edge_counts(void* graph, int* out) {
+    const cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+    size_t count = 0, edges = 0;
+    cudaError_t err = cudaGraphGetNodes(g, nullptr, &count);
+    std::vector<cudaGraphNode_t> nodes(count), kernels;
+    if (err == cudaSuccess && count > 0)
+        err = cudaGraphGetNodes(g, nodes.data(), &count);
+    for (size_t k = 0; err == cudaSuccess && k < count; ++k) {
+        cudaGraphNodeType type;
+        err = cudaGraphNodeGetType(nodes[k], &type);
+        if (err == cudaSuccess && type == cudaGraphNodeTypeKernel)
+            kernels.push_back(nodes[k]);
+    }
+    if (err == cudaSuccess)
+        err = graph_edges(g, nullptr, nullptr, nullptr, &edges);
+    std::vector<cudaGraphNode_t> from(edges), to(edges);
+    std::vector<cudaGraphEdgeData> data(edges);
+    if (err == cudaSuccess && edges > 0)
+        err = graph_edges(g, from.data(), to.data(), data.data(), &edges);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const auto kernel = [&](cudaGraphNode_t x) {
+        return std::find(kernels.begin(), kernels.end(), x) != kernels.end();
+    };
+    int programmatic = 0, between = 0;
+    for (size_t e = 0; e < edges; ++e) {
+        if (data[e].type != cudaGraphDependencyTypeProgrammatic) continue;
+        ++programmatic;
+        between += kernel(from[e]) && kernel(to[e]);
+    }
+    const int values[] = {static_cast<int>(count),
+                          static_cast<int>(kernels.size()),
+                          static_cast<int>(edges), programmatic, between};
+    for (int k = 0; k < 5; ++k) out[k] = values[k];
+    return 0;
 }
 
 extern "C" int fold_floor_f64_launch(const double* x, double* out,

@@ -264,7 +264,8 @@ def declare(lib):
     # graded_chunk_*_launch: the ints after (mode, B, n, D, planet), then
     # G, dt, eps2, r2 (each as (hi, lo) for double-double); the device
     # word of the base step s0, the chunk's K steps and the host int that
-    # receives the launches made
+    # receives the launches made (binary64: two, the launches made and the
+    # step launches made as programmatic dependents)
     for name, ints, real, reals in (
             ("graded_chunk_f64_launch", 1, ctypes.c_double, 4),   # dist3
             ("graded_chunk_f32_launch", 0, ctypes.c_float, 4),
@@ -305,6 +306,10 @@ def declare(lib):
     lib.graded_step_dd_info.argtypes = [
         ctypes.c_int, ctypes.c_void_p,                       # n, int out[10]
     ]
+    # what a CUDA graph holds (int out[5]): graph_edge_counts(cudaGraph_t,
+    # out)
+    lib.graph_edge_counts.restype = ctypes.c_int
+    lib.graph_edge_counts.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.fold_floor_f64_launch.restype = ctypes.c_int
     lib.fold_floor_f64_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # x, out, ns

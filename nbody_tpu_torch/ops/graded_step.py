@@ -21,7 +21,8 @@ kernels read the chunk's base step from a device word that the host writes
 before each replay. The wrappers `graded_step_f64`, `graded_step_f32` and
 `graded_step_dd` count the launches a replay makes, as the C call reports
 them, ops/chunking `GRAPHS` (also reachable here) the replays and captures,
-and a request's record the chunks the resident kernel ran
+and a request's record the chunks the resident kernel ran and the
+binary64 step launches made as programmatic dependents of the step before
 (utils/profiling). Only a tensor that lies on the CPU goes to the plain
 version, the per-step PyTorch loop `_p12_chunk_ref`, `_p3_chunk_ref` or
 `_p123_chunk_ref`, whose force is `ops/integrate`'s (kernels B1, B2 and B4
@@ -434,10 +435,13 @@ def _replay_chunk(fn, mode: int, c: Carry, s0: int, s1: int, lib) -> None:
     one launch of the resident chunk) and, for an odd K, the copy of the
     result from the second buffer into (c.q, c.v); the arrivals stay in
     c.arr (csrc/graded.cuh). The launches the C call reported at the
-    capture are added to `fn.launches`; a chunk of one launch is the
-    resident kernel's, counted in the request's record, and a binary64
-    chunk of more its rows x steps under B1''s geometry (`b1_geometry`).
-    `lib`: the kernel library, or a stand-in in the CPU tests."""
+    capture are added to `fn.launches`, and those of its step launches
+    made as programmatic dependents of the step before (the binary64 step
+    kernel's, steps 2 .. K of a launch-a-step chunk) to
+    `fn.pdl_launches` and the request's record; a chunk of one launch is
+    the resident kernel's, counted in the record, and a binary64 chunk of
+    more its rows x steps under B1''s geometry (`b1_geometry`). `lib`: the
+    kernel library, or a stand-in in the CPU tests."""
     K = s1 - s0
     if is_dd(c.q):
         launch, ints = lib.graded_chunk_dd_launch, ()
@@ -461,19 +465,22 @@ def _replay_chunk(fn, mode: int, c: Carry, s0: int, s1: int, lib) -> None:
                 *(_ptr(x) for x in tensors[6:]), mode, B, n,
                 c.others.shape[0] - 1, c.planet, *ints, *reals,
                 word.data_ptr(), K)
-        launched = ctypes.c_int(0)
+        # the launches made, then the programmatic ones among them (only
+        # graded_chunk_f64_launch writes the second)
+        counts = (ctypes.c_int * 2)()
 
         def body() -> None:
             if arr2 is not arr:
                 arr2.copy_(arr)       # the second arrival buffer, on entry
-            rc = launch(*head, ctypes.addressof(launched), _stream(q))
+            rc = launch(*head, ctypes.addressof(counts), _stream(q))
             if rc != 0:
                 raise RuntimeError(f"{fn.__name__} kernel launch failed: "
                                    f"CUDA error {rc}")
             if K % 2:
                 q.copy_(q2)
                 v.copy_(v2)
-        body.launched = launched
+        body.launched = ctypes.c_int.from_buffer(counts)
+        body.dependents = ctypes.c_int.from_buffer(counts, 4)
         body.geometry = b1_geometry(lib, B, n, n) \
             if fn is graded_step_f64 else None
         return body
@@ -481,6 +488,9 @@ def _replay_chunk(fn, mode: int, c: Carry, s0: int, s1: int, lib) -> None:
     body = _graphs(c).run(_key("chunk", mode, c, K, ints, (q, v) + tensors),
                           build, q.device, s0)
     fn.launches += body.launched.value
+    if body.dependents.value:
+        fn.pdl_launches += body.dependents.value
+        profiling.pdl_launched(body.dependents.value)
     if body.launched.value == 1:
         profiling.resident_chunk()
     elif body.geometry is not None:
@@ -489,7 +499,9 @@ def _replay_chunk(fn, mode: int, c: Carry, s0: int, s1: int, lib) -> None:
 
 def graded_step_f64(mode: int, c: Carry, s0: int, s1: int) -> None:
     """Steps s0+1..s1 of a float64 carry on its card through the fp64 graded
-    step kernel; adds its launches to `graded_step_f64.launches`."""
+    step kernel; adds its launches to `graded_step_f64.launches`, those
+    made as programmatic dependents also to
+    `graded_step_f64.pdl_launches`."""
     _check(mode, c, s0, s1)
     if c.q.dtype != torch.float64 or is_dd(c.q):
         raise TypeError(f"graded_step_f64 takes float64 (B, n, 3), got "
@@ -518,6 +530,7 @@ def graded_step_dd(mode: int, c: Carry, s0: int, s1: int) -> None:
 
 
 graded_step_f64.launches = 0
+graded_step_f64.pdl_launches = 0
 graded_step_f32.launches = 0
 graded_step_dd.launches = 0
 

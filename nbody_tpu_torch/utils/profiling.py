@@ -41,6 +41,10 @@ its own):
                   launch a step, by the geometry of B1''s step kernel that
                   the library chose for their shape (`b1_launch_rows`;
                   csrc/graded_step_f64.cu graded_step_f64_geometry)
+    pdl_launches  the step launches of those chunks made as programmatic
+                  dependents of the step before (`pdl_launched`; K - 1 a
+                  chunk of K steps, csrc/graded.cuh graded_chunk; a replay
+                  counts those it captured)
     gathers, gather_bytes the all_gathers of blocks over the mesh's 'body'
                   axis that the chunks enqueued (`gathered`: a step's
                   positions, a chunk's carry, the plain versions' forces;
@@ -100,6 +104,7 @@ class Request:
         self.capture_s = 0.0
         self.resident_chunks = 0
         self.b1_row_steps: dict = {}
+        self.pdl_launches = 0
         self.gathers = 0
         self.gather_bytes = 0
         self.stream: torch.cuda.Stream | None = None    # the last chunk's
@@ -257,6 +262,14 @@ def b1_launch_rows(geometry: str, row_steps: int) -> None:
             req.b1_row_steps.get(geometry, 0) + row_steps
 
 
+def pdl_launched(count: int) -> None:
+    """Count `count` graded step launches made as programmatic dependents
+    of the launch before them in the open request; nothing outside one."""
+    req = getattr(_open, "request", None)
+    if req is not None:
+        req.pdl_launches += count
+
+
 def gathered(count: int, nbytes: int) -> None:
     """Count `count` all_gathers whose gathered outputs hold `nbytes` bytes
     in all in the open request; nothing outside one."""
@@ -289,7 +302,8 @@ def _reduce(req: Request) -> dict:
             "outside_s": wall_s - span_s, "row_steps": dict(req.row_steps),
             "captures": req.captures, "capture_s": req.capture_s,
             "resident_chunks": req.resident_chunks,
-            "b1_row_steps": dict(req.b1_row_steps), "gathers": req.gathers,
+            "b1_row_steps": dict(req.b1_row_steps),
+            "pdl_launches": req.pdl_launches, "gathers": req.gathers,
             "gather_bytes": req.gather_bytes}
 
 

@@ -23,20 +23,28 @@ producer geometry at every shape:
   * several copies of the sources built at once, each linked alone
     (`ops/_build._compile_and_link`, as `build_chunk_variants` uses it);
   * `chip_smoke.py`'s split of the step (phase 17) still finds the code it
-    edits in these sources.
+    edits in these sources;
+  * the step launches of a chunk made as programmatic dependents of the
+    step before (csrc/graded.cuh graded_chunk: K - 1 of a binary64
+    launch-a-step chunk, none of a resident, float32 or double-double
+    one), counted in `graded_step_f64.pdl_launches`, the record's
+    `pdl_launches` and the `--stats` line.
 
 On a card (marked `cuda`, skipped here): at shapes on either side of each
 threshold of the choice, the geometry the library reports, every carry of
 the chunks bitwise the plain chunk on the card (P1+P2 at B=2 and B=1,
 Problem 3 with a destroyed device, the fused driver's launch-a-step side,
 the mesh form over one and two row blocks; every scene's sources hold
-massless devices and each row's self-pair), and whole solves' answers
-bitwise the native core, in dsqrt and sqrt3:
+massless devices and each row's self-pair), whole solves' answers
+bitwise the native core, in dsqrt and sqrt3, and a captured chunk's
+programmatic edges (K - 1 between its step kernels) with its carry
+bitwise the plain chunk's, over one wave of blocks and over two:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_b1_producer.py
 """
 
 import ctypes
+import dataclasses
 import functools
 import json
 import os
@@ -169,6 +177,117 @@ def test_rows_chunk_counts_its_geometry(dtype):
     f64 = dtype == torch.float64
     assert req.record["b1_row_steps"] == ({FAKE: 2 * 14} if f64 else {})
     assert asked == ([(2, SCENE.n, blocks.ni)] if f64 else [])
+
+
+# chunks of 7, 7 and 6 steps: the programmatic launches of a chunk of K
+# launch-a-step binary64 steps are its steps 2 .. K
+PDL_CHUNKS = [(0, 7), (7, 14), (14, 20)]
+PDL_STEPS = sum(s1 - s0 - 1 for s0, s1 in PDL_CHUNKS)
+
+
+def _pdl_carry(mode: int, precision: str):
+    from test_torch_graded_step import _carry, _fuzz
+
+    if precision != "dd":
+        return _carry(mode, {"f64": torch.float64,
+                             "f32": torch.float32}[precision])
+    from nbody_tpu_torch.ops import ddfloat as ddf
+    from nbody_tpu_torch.physics import oscillation_table
+
+    cfg = config.SimConfig(n_steps=30)
+    return ds._p12_carry(_fuzz(5), oscillation_table(cfg), cfg,
+                         torch.device("cpu"), ddf.NAME)
+
+
+@pytest.mark.parametrize("driver,precision,path,want", [
+    ("p12", "f64", "step", PDL_STEPS), ("p3", "f64", "step", PDL_STEPS),
+    ("p123", "f64", "step", PDL_STEPS), ("p123", "f64", "resident", 0),
+    ("p12", "f32", "step", 0), ("p12", "dd", "step", 0)])
+def test_pdl_launches_count_each_chunk(driver, precision, path, want):
+    """Chunks through the graph path (stand-in capture and library): the
+    record's `pdl_launches` and `graded_step_f64.pdl_launches` add K - 1
+    for each binary64 chunk that runs a launch a step (P1+P2, Problem 3,
+    the fused driver above the resident limit), none for a resident chunk
+    and none for a float32 or double-double chunk, whose step kernels do
+    not wait; every launch is still counted in the kernel's `launches`."""
+    mode = {"p12": gs.P12, "p3": gs.P3, "p123": gs.P123}[driver]
+    c = _pdl_carry(mode, precision)
+    c.graphs = chunking.ChunkGraphs(capture=StandIn())
+    lib = FakeGradedLib(c)
+    lib.resident_max_n = RESIDENT_MAX_N if path == "resident" else 0
+    fn = {"f64": gs.graded_step_f64, "f32": gs.graded_step_f32,
+          "dd": gs.graded_step_dd}[precision]
+    pdl, launches = gs.graded_step_f64.pdl_launches, fn.launches
+    with profiling.entry("test") as req:
+        for s0, s1 in PDL_CHUNKS:
+            gs._check(mode, c, s0, s1)
+            gs._replay_chunk(fn, mode, c, s0, s1, lib)
+    assert req.record["pdl_launches"] == want
+    assert gs.graded_step_f64.pdl_launches - pdl == want
+    assert fn.launches - launches == (
+        len(PDL_CHUNKS) if path == "resident"
+        else sum(s1 - s0 + 1 for s0, s1 in PDL_CHUNKS))
+
+
+def test_pdl_launches_of_a_replay_are_its_captures():
+    """A replay makes no C call: the programmatic launches it adds are
+    those the call reported when it was captured, K - 1 each replay."""
+    c = _pdl_carry(gs.P12, "f64")
+    lib = FakeGradedLib(c)
+    reported = []
+
+    def capture_once(body):
+        body()
+        reported.append((body.launched.value, body.dependents.value))
+        return lambda: None
+
+    c.graphs = chunking.ChunkGraphs(capture=capture_once)
+    before = gs.graded_step_f64.pdl_launches
+    with profiling.entry("test") as req:
+        for s0 in (0, 9, 18):
+            gs._replay_chunk(gs.graded_step_f64, gs.P12, c, s0, s0 + 9, lib)
+    assert reported == [(10, 8)] and len(lib.chunks) == 1
+    assert req.record["pdl_launches"] == 24
+    assert gs.graded_step_f64.pdl_launches - before == 24
+
+
+@pytest.mark.parametrize("path", ["resident", "step", "phased"])
+def test_stats_print_the_pdl_launches(tmp_path, monkeypatch, capsys, path):
+    """A CLI solve whose chunks run through the graph path (stand-in
+    capture and library): `--stats` prints `graded_step_f64_pdl_launches`,
+    K - 1 for each chunk of K steps that ran a launch a step (the phased
+    drivers, the fused one above the resident limit), 0 where every chunk
+    is one launch of the resident kernel; the record's `pdl_launches`
+    agrees."""
+    inp, out = str(tmp_path / "s.in"), str(tmp_path / "s.out")
+    write_input(inp, SCENE)
+    monkeypatch.setattr(config, "SimConfig",
+                        functools.partial(config.SimConfig,
+                                          chunk_steps=CHUNK))
+    if path == "phased":
+        monkeypatch.setattr(engine, "FUSED_MAX_N", 0)
+    chunks = []
+
+    def chunk_fn(mode, c, s0, s1):
+        gs._check(mode, c, s0, s1)
+        chunks.append(s1 - s0)
+        c.graphs = c.graphs or chunking.ChunkGraphs(capture=StandIn())
+        lib = FakeGradedLib(c)
+        lib.resident_max_n = 0 if path == "step" else RESIDENT_MAX_N
+        with profiling.chunk(gs.DRIVERS[mode], c.q.shape[0], s1 - s0,
+                             c.q.device):
+            gs._replay_chunk(gs.graded_step_f64, mode, c, s0, s1, lib)
+
+    monkeypatch.setattr(ds, "graded_chunk", chunk_fn)
+    assert main([inp, out, "--device", "cpu", "--n-steps", str(STEPS),
+                 "--stats"]) == 0
+    stats = json.loads(capsys.readouterr().err.strip().split("\n")[-1])
+    assert stats["answers"]["hit_time_step"] == 130
+    want = 0 if path == "resident" else sum(k - 1 for k in chunks)
+    assert len(chunks) > 1 and (path == "resident" or want > 0)
+    assert stats["graded_step_f64_pdl_launches"] == want
+    assert stats["pdl_launches"] == want
+    assert profiling.RECORDS[-1]["pdl_launches"] == want
 
 
 def test_variants_compile_at_once_and_link_each(tmp_path, monkeypatch):
@@ -331,6 +450,77 @@ def test_each_geometry_bitwise_plain_chunk_on_card(cuda, driver, n, B,
                                 _make(driver, n, B, dist3),
                                 [(0, half), (half, 2 * half)])
     assert rec["bitwise_equal"], rec
+
+
+# (driver, n, B, K, several): chunks of K steps of B1''s launch-a-step
+# path captured as ChunkGraphs captures them: at n = 1024, K = 8, P1 alone
+# (B = 1), P1+P2 (B = 2) and Problem 3 (rows arriving at steps 5, 120 and
+# 40: one arrives inside the first chunk, two stay frozen through both);
+# whole chunks of 2000 steps at n = 2048, B = 1 and B = 2, the latter's
+# blocks more than one wave on the card (`several`: a block that read the
+# state before its wait would meet a step still running)
+PDL_CARD = [("p12", 1024, 1, 8, False), ("p12", 1024, 2, 8, False),
+            ("p3", 1024, 3, 8, False), ("p12", 2048, 1, 2000, False),
+            ("p12", 2048, 2, 2000, True)]
+
+
+def _waves(B: int, n: int) -> int:
+    """The waves of blocks of the one-device step kernel at (B, n) on this
+    card (graded_step_f64_info: resident blocks an SM, rows a block)."""
+    out = (ctypes.c_int * 11)()
+    assert _build.load().graded_step_f64_info(B, n, ctypes.addressof(out)) \
+        == 0
+    blocks = B * -(-n // out[4])
+    return -(-blocks // (out[3] * _sms()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("driver,n,B,K,several", PDL_CARD)
+def test_programmatic_edges_and_bits_on_card(cuda, driver, n, B, K,
+                                             several):
+    """A chunk of B1''s launch-a-step path captured into a CUDA graph as
+    ops/chunking captures it (the graph kept to be read): its K step
+    launches and the check launch are kernel nodes, steps 2 .. K joined
+    to the step before by K - 1 programmatic edges, the graph's only ones
+    (the first step and the check kernel follow plainly); the C call
+    reported K - 1 programmatic launches a replay; every carry after the
+    chunks bitwise the plain chunk's on the card."""
+    mode = {"p12": gs.P12, "p3": gs.P3}[driver]
+    if several:
+        assert _waves(B, n) > 1
+    graphs = []
+
+    def capture(body):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            body()
+        graph.instantiate()
+        graphs.append(graph)
+        return graph.replay
+
+    make = _make(driver, n, B, "dsqrt")
+    got, want = make(cuda), make(cuda)
+    got.graphs = chunking.ChunkGraphs(capture=capture)
+    chunks = [(0, K), (K, 2 * K)] if K < 2000 else [(0, K)]
+    lib = _build.load()
+    pdl = gs.graded_step_f64.pdl_launches
+    for s0, s1 in chunks:
+        gs._check(mode, got, s0, s1)
+        gs._replay_chunk(gs.graded_step_f64, mode, got, s0, s1, lib)
+        gs._REF[mode](want, s0, s1)
+    torch.cuda.synchronize()
+    assert len(graphs) == 1
+    out = (ctypes.c_int * 5)()
+    assert lib.graph_edge_counts(graphs[0].raw_cuda_graph(),
+                                 ctypes.addressof(out)) == 0
+    nodes, kernels, edges, programmatic, between = out
+    assert (kernels, programmatic, between) == (K + 1, K - 1, K - 1), \
+        list(out)
+    assert gs.graded_step_f64.pdl_launches - pdl == len(chunks) * (K - 1)
+    for f in dataclasses.fields(want):
+        x = getattr(want, f.name)
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(getattr(got, f.name), x), f.name
 
 
 @pytest.mark.cuda

@@ -72,7 +72,9 @@ class FakeGradedLib:
     tensors, for one carry's constants (module docstring). Its chunk calls
     write the launches they stand for into the host int they are given:
     one for a binary64 fused chunk of at most `resident_max_n` bodies and
-    RES_MAX_ROWS rows (the resident kernel), else K + 1."""
+    RES_MAX_ROWS rows (the resident kernel), else K + 1; the binary64 call
+    also the step launches made as programmatic dependents into the int
+    after it: none for the resident kernel, else K - 1."""
 
     resident_max_n = RESIDENT_MAX_N
 
@@ -84,7 +86,8 @@ class FakeGradedLib:
     def graded_chunk_f64_launch(self, *a):
         resident = (a[16] == gs.P123 and a[18] <= self.resident_max_n
                     and a[17] <= RES_MAX_ROWS)
-        return self._chunk(*a[:21], *a[-4:], resident=resident)
+        return self._chunk(*a[:21], *a[-4:], resident=resident,
+                           dependents=True)
 
     def graded_chunk_f32_launch(self, *a):
         return self._chunk(*a[:21], *a[-4:])
@@ -104,13 +107,16 @@ class FakeGradedLib:
 
     def _chunk(self, q, v, q2, v2, m0, mh, fst, md2, others, arr, arr2, hit,
                flag, min_d2, q_snap, v_snap, mode, B, n, D, planet, word, K,
-               launched, stream, resident=False):
+               launched, stream, resident=False, dependents=False):
         c0 = self.c
         dt = c0.q.dtype
         tail = (2,) if gs.is_dd(c0.q) else ()
         s0 = int(_view(word, (1,), torch.int32)[0])
         self.chunks.append((s0, K))
         ctypes.c_int.from_address(launched).value = 1 if resident else K + 1
+        if dependents:
+            ctypes.c_int.from_address(launched + 4).value = \
+                0 if resident else K - 1
 
         def real(p, shape):
             return _view(p, shape + tail, dt)
