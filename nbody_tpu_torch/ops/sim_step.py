@@ -55,6 +55,12 @@ loops whose force is the cross form's plain twin on the rank's rows and
 an all_gather of those rows' forces. The bits are the one-device eager
 loop's on every mesh shape (in float32 at one tile). Each all_gather is
 counted in the open request's record (utils/profiling `gathered`).
+
+A one-device chunk on a card counts its bodies x steps in the open
+request's record (utils/profiling `sim_rows`) under its precision (f64,
+f32, dd) and the form that the C call reports through its launch count:
+`persistent` for one launch, `blocked` for the pre-launch and one a step
+(a replay as its graph captured it).
 """
 
 from __future__ import annotations
@@ -303,20 +309,21 @@ def _check_rc(wrapper, rc: int) -> None:
 
 
 def _launch(wrapper, c: SimCarry, s0: int, s1: int, graphs, name: str,
-            args: tuple) -> None:
+            args: tuple, precision: str) -> None:
     """A step kernel's chunk on a CUDA carry through the library's C call
     `name`(st0, st1, *args, word, K, launched, stream) (the kernel's
     sim_chunk_*_launch, which returns its CUDA error and writes the
     kernels it launched into the host int at `launched`: one persistent
-    launch, or the pre-launch and one a step), and those launches added
-    to `wrapper.launches`."""
+    launch, or the pre-launch and one a step), those launches added to
+    `wrapper.launches` and the chunk counted under `precision` and the
+    form they show (module docstring)."""
     lib = _lib()
     with torch.cuda.device(c.q.device):
-        _chunk(wrapper, c, s0, s1, graphs, name, args, lib)
+        _chunk(wrapper, c, s0, s1, graphs, name, args, lib, precision)
 
 
 def _chunk(wrapper, c: SimCarry, s0: int, s1: int, graphs, name: str,
-           args: tuple, lib) -> None:
+           args: tuple, lib, precision: str) -> None:
     """`_launch`'s chunk with the kernel library `lib` (a stand-in in the
     CPU tests): one C call and, for an odd K, the copy of the carry's
     slots back from the second buffer; a replay counts the launches its
@@ -341,7 +348,10 @@ def _chunk(wrapper, c: SimCarry, s0: int, s1: int, graphs, name: str,
         return run
 
     run = _run(c, s0, graphs, c.q.shape[0], ("chunk", name, args, K), body)
-    wrapper.launches += run.launched.value
+    launched = run.launched.value
+    wrapper.launches += launched
+    form = "persistent" if launched == 1 else "blocked"
+    profiling.sim_rows(f"{precision}.{form}", c.q.shape[0] * K)
 
 
 def _read(c: SimCarry, out: torch.Tensor) -> None:
@@ -406,7 +416,8 @@ def sim_chunk_f64(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
     _launch(sim_chunk_f64, c, s0, s1, graphs, "sim_chunk_f64_launch",
             (m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(), c.q.shape[0],
              INTEGRATORS.index(integrator), int(compensated),
-             DIST3_CODES[dist3_mode], G, dt, 0.5 * dt, eps * eps, grid_cap))
+             DIST3_CODES[dist3_mode], G, dt, 0.5 * dt, eps * eps, grid_cap),
+            "f64")
 
 
 sim_chunk_f64.launches = 0
@@ -456,7 +467,7 @@ def sim_chunk_f32(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
             (m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(), c.q.shape[0],
              INTEGRATORS.index(integrator), int(compensated),
              scalar(G, f32), scalar(dt, f32), scalar(0.5 * dt, f32),
-             eps2_f32(eps), grid_cap))
+             eps2_f32(eps), grid_cap), "f32")
 
 
 sim_chunk_f32.launches = 0
@@ -499,7 +510,7 @@ def sim_chunk_dd(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
     _launch(sim_chunk_dd, c, s0, s1, graphs, "sim_chunk_dd_launch",
             (m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(), c.q.shape[0],
              INTEGRATORS.index(integrator), G, dt, 0.5 * dt,
-             *eps2_dd(eps)))
+             *eps2_dd(eps)), "dd")
 
 
 sim_chunk_dd.launches = 0

@@ -113,7 +113,11 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
                      for want of binary64 on a TPU.
     integrator: 'euler' (the graded spec's semi-implicit Euler) or
     'leapfrog' (KDK velocity Verlet, 2nd order, the same one force
-    evaluation per step).
+    evaluation per step). The leapfrog's force at the initial positions,
+    its seed, is one launch of the force kernel outside the chunks (on
+    one card kernel B1's self form in binary64, B2's in 'f32', B4's in
+    double-double; on the mesh the cross form on the rank's rows and an
+    all_gather), and a span of its own (utils/profiling `seed`).
     device: 'cuda' (raises without a card) or 'cpu' (the plain PyTorch
     versions of the kernels).
     compensated: Kahan-compensated q/v accumulation (~6 elementwise ops a
@@ -140,8 +144,9 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
     pair it with utils.checkpoint.CheckpointPolicy); a double-double state
     is handed over rounded to binary64 (hi + lo), with the remainders in
     q_lo, v_lo.
-    The call is a request (utils/profiling.entry) whose chunks and graph
-    captures are spans.
+    The call is a request (utils/profiling.entry) whose chunks, graph
+    captures and leapfrog seed are spans; on one card its record counts
+    the chunks' bodies x steps by precision and form (`sim_row_steps`).
     """
     if integrator not in ("euler", "leapfrog"):
         raise ValueError(f"unknown integrator: {integrator}")
@@ -219,8 +224,9 @@ def simulate(scene: Scene, cfg: SimConfig = DEFAULT_CONFIG, *,
 
     if integrator == "leapfrog":
         # seeded at the initial positions with the first step's masses
-        c.a = accel(c.q, m0t + m_halft * fst[min(1, n_steps)], G=G, eps=eps,
-                    dist3_mode=dist3, force=seed)
+        with profiling.seed(dev):
+            c.a = accel(c.q, m0t + m_halft * fst[min(1, n_steps)], G=G,
+                        eps=eps, dist3_mode=dist3, force=seed)
     if compensated:
         c.qc, c.vc = torch.zeros_like(c.q), torch.zeros_like(c.v)
     kw = {"G": G, "eps": eps, "dt": dt, "integrator": integrator,
@@ -333,9 +339,10 @@ def _simulate_dd(scene: Scene, cfg: SimConfig, *, n_steps: int,
                         v_lo=vs.lo.cpu().numpy())
 
     if integrator == "leapfrog":
-        c.a = accel_dd_state(c.q, m_eff_dd(m0t, m_halft,
-                                           float(table[min(1, n_steps)])),
-                             G=G, eps=eps, force=seed)
+        with profiling.seed(device):
+            c.a = accel_dd_state(c.q, m_eff_dd(m0t, m_halft,
+                                               float(table[min(1, n_steps)])),
+                                 G=G, eps=eps, force=seed)
     kw = {"G": G, "eps": eps, "dt": dt, "integrator": integrator}
     fst_t = torch.from_numpy(table).to(device)
 

@@ -7,16 +7,17 @@ call, or an engine call with no entry open. Under it lie the phases
 (`span`: read_input, oscillation_table, problems_fused, problem_1_2,
 problem_3, write_output), a span for every chunk that a driver enqueues
 (`chunk`: `ops/graded_step.graded_chunk` and `graded_rows_chunk`,
-`simulate._march`) and one for every capture of a chunk's CUDA graph
-(`capture`: `ops/chunking.ChunkGraphs.run`). Outside an open request
-nothing is recorded.
+`simulate._march`), one for every capture of a chunk's CUDA graph
+(`capture`: `ops/chunking.ChunkGraphs.run`) and one for the leapfrog's
+seed force in `simulate()`, the force launch before the first chunk
+(`seed`). Outside an open request nothing is recorded.
 
-A chunk on a card is timed on the card's clock: two timing events from a
-pool, recorded on the current stream, the start after any capture (a
-capture moves it) and before the chunk's first enqueued operation, the end
-after the replay or the C call. They are resolved when the root closes,
-after the host read that ends every driver, so nothing waits for them. On
-the CPU a chunk takes the host's clock.
+A chunk or a seed on a card is timed on the card's clock: two timing
+events from a pool, recorded on the current stream, the start after any
+capture (a capture moves it) and before the first enqueued operation, the
+end after the replay, the C call or the force. They are resolved when the
+root closes, after the host read that ends every driver, so nothing waits
+for them. On the CPU a chunk or a seed takes the host's clock.
 
 When the root closes, the request becomes one record, a dict of numbers,
 appended to `RECORDS` (the last 512 requests; the CLI's `--stats` prints
@@ -33,6 +34,12 @@ its own):
     outside_s     wall_s less span_s: the host's work before the first
                   chunk and after the last
     row_steps     rows x steps of the chunks by driver: p12, p3, p123, sim
+    seeds, seed_s the leapfrog seeds of simulate() and their seconds
+    sim_row_steps bodies x steps of simulate's one-device chunks on a
+                  card, by precision and form (`sim_rows`): f64, f32 or
+                  dd, then persistent (one launch a chunk) or blocked (a
+                  launch a step on all rows), as the C call chose, for a
+                  replay as its graph captured it
     captures, capture_s   the graph captures and their host seconds
     resident_chunks       the graded chunks that ran as one launch of the
                   resident kernel (csrc/graded_step_f64.cu;
@@ -100,6 +107,8 @@ class Request:
         self.chunks: list = []
         self.chunk_host_s = 0.0
         self.row_steps: dict = {}
+        self.seeds: list = []
+        self.sim_row_steps: dict = {}
         self.captures = 0
         self.capture_s = 0.0
         self.resident_chunks = 0
@@ -159,7 +168,7 @@ def entry(name: str):
                 req.record = _reduce(req)
                 RECORDS.append(req.record)
         finally:
-            for c in req.chunks:
+            for c in req.chunks + req.seeds:
                 if c.events is not None:
                     _pool.setdefault(c.stream.device_index, []).extend(
                         c.events)
@@ -199,14 +208,15 @@ def _stream(req: Request, device: torch.device) -> torch.cuda.Stream:
 
 
 @contextlib.contextmanager
-def chunk(driver: str, rows: int, steps: int, device: torch.device):
-    """A chunk of `steps` steps of `rows` rows enqueued on `device` by
-    `driver`; nothing outside a request."""
+def _device_span(name: str, device: torch.device, closed):
+    """A span `name` of work enqueued on `device`, on the card's clock
+    where `device` is a card; closed(req, span) once it has closed.
+    Nothing outside a request."""
     req = getattr(_open, "request", None)
     if req is None:
         yield
         return
-    sp = _open_span(req, "chunk")
+    sp = _open_span(req, name)
     if device.type == "cuda":
         sp.stream = _stream(req, device)
         sp.events = (_event(sp.stream.device_index),
@@ -218,9 +228,24 @@ def chunk(driver: str, rows: int, steps: int, device: torch.device):
         if sp.events is not None:
             sp.events[1].record(sp.stream)
         _close_span(req, sp)
+        closed(req, sp)
+
+
+def chunk(driver: str, rows: int, steps: int, device: torch.device):
+    """A chunk of `steps` steps of `rows` rows enqueued on `device` by
+    `driver` (a context manager); nothing outside a request."""
+    def closed(req: Request, sp: Span) -> None:
         req.chunks.append(sp)
         req.chunk_host_s += sp.end - sp.start
         req.row_steps[driver] = req.row_steps.get(driver, 0) + rows * steps
+    return _device_span("chunk", device, closed)
+
+
+def seed(device: torch.device):
+    """The leapfrog's seed force of a simulate() call enqueued on `device`
+    (a context manager); nothing outside a request."""
+    return _device_span("seed", device,
+                        lambda req, sp: req.seeds.append(sp))
 
 
 @contextlib.contextmanager
@@ -270,6 +295,15 @@ def pdl_launched(count: int) -> None:
         req.pdl_launches += count
 
 
+def sim_rows(key: str, row_steps: int) -> None:
+    """Count `row_steps` bodies x steps of a simulate chunk of the
+    precision and form `key` ('f64.blocked', ...) in the open request;
+    nothing outside one."""
+    req = getattr(_open, "request", None)
+    if req is not None:
+        req.sim_row_steps[key] = req.sim_row_steps.get(key, 0) + row_steps
+
+
 def gathered(count: int, nbytes: int) -> None:
     """Count `count` all_gathers whose gathered outputs hold `nbytes` bytes
     in all in the open request; nothing outside one."""
@@ -293,6 +327,13 @@ def _reduce(req: Request) -> dict:
     elif chunks:
         chunk_s = sum(c.end - c.start for c in chunks)
         span_s = chunks[-1].end - chunks[0].start
+    seed_s = 0.0
+    for sp in req.seeds:
+        if sp.events is not None:
+            sp.events[1].synchronize()      # complete, as the chunks are
+            seed_s += sp.events[0].elapsed_time(sp.events[1]) * 1e-3
+        else:
+            seed_s += sp.end - sp.start
     root = req.root
     wall_s = root.end - root.start
     return {"request": root.request, "wall_s": wall_s,
@@ -300,6 +341,8 @@ def _reduce(req: Request) -> dict:
             "chunk_s": chunk_s, "chunk_host_s": req.chunk_host_s,
             "gaps_s": span_s - chunk_s, "span_s": span_s,
             "outside_s": wall_s - span_s, "row_steps": dict(req.row_steps),
+            "seeds": len(req.seeds), "seed_s": seed_s,
+            "sim_row_steps": dict(req.sim_row_steps),
             "captures": req.captures, "capture_s": req.capture_s,
             "resident_chunks": req.resident_chunks,
             "b1_row_steps": dict(req.b1_row_steps),
