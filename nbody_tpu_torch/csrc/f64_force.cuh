@@ -17,13 +17,14 @@
 // The sources come from an accessor (Src), so that each caller gives them
 // as it has them: a table of positions and gm_j (B1 and simulate's mesh
 // step; F64Table below), or positions in the mesh's row blocks with gm_j
-// formed from the masses (B1'; graded_step_f64.cu). Simulate's
+// formed from the masses (B1'; graded_step_f64.cu), or the positions and
+// gm_j of simulate's state (its Blocked step; sim_step_f64.cu). Simulate's
 // persistent chunk, which writes its sources between steps, reads them
 // with plain loads a tile ahead (f64_rows_terms_ahead). B1''s launch-a-step
-// path has compute threads of its own (F64Producer below): several rows a
-// thread, the source and its masses a tile ahead, zero numerators without
-// the slow-path call; and a fold loop whose tile is unrolled
-// (f64_rows_fold_tiles), the same sums.
+// path and simulate's Blocked step have compute threads of their own
+// (F64Producer below): several rows a thread, the source (and B1''s
+// masses) a tile ahead, zero numerators without the slow-path call; and a
+// fold loop whose tile is unrolled (f64_rows_fold_tiles), the same sums.
 //
 // Bound: the fp64 pipe and the fold's latency. A pair costs 40 fp64
 // instructions in the SASS (scripts/sass_count.py), a square root and one
@@ -31,12 +32,16 @@
 // threads issue; a row component is a chain of n dependent adds (about 9.5
 // cycles each on the card, chip_smoke.py phase 2's fold floor), which no
 // reassociation may shorten, run in parallel over the lanes of the fold
-// warp and over the blocks an SM holds. Kernel B1 and simulate run a few
-// thousand rows at most (simulate at n = 1024, the mesh's 512-row cross
-// form), so blocks of few rows fill the SMs: one geometry, F64Block. On
-// B1''s graded step this producer fell behind its fold (PERF.md section
-// 6), which F64Producer repairs. wgmma and TMA do not apply: there is no
-// fp64 matrix product here and a tile is a few KB.
+// warp and over the blocks an SM holds. Kernel B1 (the seed of
+// simulate's leapfrog, the mesh's cross form) and simulate's persistent
+// chunk keep one geometry, F64Block. On B1''s graded step and on
+// simulate's Blocked step (65536 rows at the benchmark's binary64 cell)
+// this producer fell behind its fold and its fold loop ran at twice the
+// adds' latency (PERF.md section 6), which F64Producer and
+// f64_rows_fold_tiles repair, in geometries chosen by shape: the Blocked
+// step's wide blocks give the fold more lanes, 3 a row. wgmma and TMA do
+// not apply: there is no fp64 matrix product here and a tile is a few
+// KB.
 
 #pragma once
 
@@ -67,10 +72,12 @@ struct F64Geometry {
     };
 };
 
-// 4 rows a block, 256 blocks a scenario row of 1024 bodies. At n = 16384
-// rows, 8 rows a block with two a compute thread was 12% faster on an
-// "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md); no binary64 path
-// runs that many rows.
+// 4 rows a block, 256 blocks a scenario row of 1024 bodies: kernel B1 and
+// simulate's persistent chunk (up to 512 rows). At n = 16384 rows, 8 rows
+// a block with two a compute thread was 12% faster on an "NVIDIA H100
+// 80GB HBM3, 700.00 W" (PERF.md); the paths that run that many rows,
+// simulate's Blocked step above 512 bodies (65536 rows at the benchmark's
+// binary64 cell), take F64Producer's geometries (sim_step_f64.cu).
 using F64Block = F64Geometry<4, 64, 4, 2>;
 
 // Kernel B1's sources: positions q (n, 3) and gm (n,), read a pair (the L1
@@ -187,8 +194,9 @@ __device__ __forceinline__ void f64_rows_terms_ahead(const double* q,
     }
 }
 
-// B1''s producer on the graded launch-a-step path (graded_step_f64.cu),
-// the compute threads' half of the block force above in another form: R
+// B1''s producer on the graded launch-a-step path (graded_step_f64.cu)
+// and simulate's Blocked step (sim_step_f64.cu), the compute threads'
+// half of the block force above in another form: R
 // rows a block, RT of them a compute thread, TJ columns a tile, NBUF term
 // tiles in the ring, MINB blocks an SM asked of ptxas. The fold warp, the
 // term ring and its barriers are F64Geometry's (f64_rows_qi serves both;

@@ -4,9 +4,9 @@
 // launch (sim_step.cuh sim_persistent): every block stays resident, walks
 // its row blocks step after step, and waits at a grid barrier between
 // steps; above it, where that measured slower, a launch a step of the
-// row-range kernel on all n rows. One C call a chunk, which a CUDA graph
-// can replay (the launches read the chunk's base step from a device
-// word).
+// row-range kernel on all n rows (the Blocked form). One C call a chunk,
+// which a CUDA graph can replay (the launches read the chunk's base step
+// from a device word).
 //
 // Replaces, on simulate's binary64 path, nbody_tpu/ops/pallas_forces_e64.py
 // ::_e64_kernel together with the per-step work around it that the JAX
@@ -17,32 +17,46 @@
 // eager loop around kernel B1 (and to its plain version,
 // ops/sim_step.sim_chunk_f64_ref).
 //
-// A row block is R rows (B1's geometry, F64Block): its force is the
-// binary64 block force (f64_force.cuh) over the sources p (leapfrog) or q
-// (Euler) and gm, each compute thread's source loaded a tile ahead
-// (f64_rows_terms_ahead: plain loads, the chunk writes them); its fold
-// lane (row, component) reads its state and forms its row's gm of step
-// t + 1 before the fold, then updates its component and forms the rest
-// of what step t + 1 reads of it. The block's compute threads leave the
-// step once their terms are written and its idle fold lanes once the fold
-// is done; every thread then meets the others at the __syncthreads
-// between row blocks and at the grid barrier (sim_step.cuh has what may go
-// wrong in one launch: co-residency, stale reads, the barrier's cost).
-// The grid is min(n / R row blocks, the blocks the card holds at once): at
-// n = 512, 128 blocks of one row block each.
+// The persistent chunk: a row block is R rows (B1's geometry, F64Block):
+// its force is the binary64 block force (f64_force.cuh) over the sources
+// p (leapfrog) or q (Euler) and gm, each compute thread's source loaded a
+// tile ahead (f64_rows_terms_ahead: plain loads, the chunk writes them);
+// its fold lane (row, component) reads its state and forms its row's gm
+// of step t + 1 before the fold, then updates its component and forms
+// the rest of what step t + 1 reads of it. The block's compute threads
+// leave the step once their terms are written and its idle fold lanes
+// once the fold is done; every thread then meets the others at the
+// __syncthreads between row blocks and at the grid barrier (sim_step.cuh
+// has what may go wrong in one launch: co-residency, stale reads, the
+// barrier's cost). The grid is min(n / R row blocks, the blocks the card
+// holds at once): at n = 512, 128 blocks of one row block each.
 //
-// The mesh (sim_rows_f64_step, the Blocked form), and one device above
-// PERSISTENT_MAX_N on all n rows: a launch a step on a rank's rows
-// [r0, end), reading every row's position (sim_step.cuh has
-// the layout), forming the next step's gm for all n bodies; the host
-// gathers the positions between two launches (an NCCL call cannot sit
-// inside a kernel). Replaces, on simulate's binary64 mesh path, the JAX
-// package's chunk scan inside shard_map (nbody_tpu/simulate.py
-// _chunk_scan_mesh).
+// The Blocked form, one device above PERSISTENT_MAX_N on all n rows and
+// the mesh (sim_rows_f64_step): a launch a step on the rows [r0, end),
+// reading every row's position (sim_step.cuh has the layout), forming the
+// next step's gm for all n bodies; the host gathers the positions between
+// two launches (an NCCL call cannot sit inside a kernel). Replaces, on
+// simulate's binary64 mesh path, the JAX package's chunk scan inside
+// shard_map (nbody_tpu/simulate.py _chunk_scan_mesh). Its block force is
+// B1''s (graded_step_f64.cu): the compute threads are F64Producer's (RT
+// rows a thread against each source, the source loaded a tile ahead
+// through SimSources, zero numerators without __ddiv_rn's slow-path
+// call), the fold warp's tile is unrolled (f64_rows_fold_tiles), the same
+// sums in the same order. Its geometry is chosen by the launch's rows
+// (sim_geometry): blocks of 4 rows where few rows would leave SMs idle,
+// blocks of 8 where the rows fill the card, as at n = 65536: their fold
+// lanes (3 a row) and 4 blocks an SM give the fold enough independent
+// chains of adds to keep up with the producer.
 //
 // Bound: kernel B1's (the fp64 pipe, 40 instructions a pair, and the
-// fold's latency: n dependent adds a row component) plus a grid barrier a
-// step in one chunk; the update is a few ops a body.
+// fold's latency: n dependent adds a row component, about 9.5 cycles each,
+// run side by side over the fold lanes an SM holds) plus, in the
+// persistent chunk, a grid barrier a step; the update is a few ops a
+// body. On an "NVIDIA H100 80GB HBM3, 700.00 W" at n = 65536 (PERF.md
+// section 6): with kernel B1's producer and fold loop (F64Block) the
+// Blocked step took 24.86 ms, 19.98 with no fold adds and 17.74 with no
+// terms past the ring; in the wide geometry below 19.78 ms, bound by the
+// producer (17.93 ms with no fold adds, about 57% of the fp64 pipe).
 
 #include <cuda_runtime.h>
 
@@ -56,21 +70,19 @@ using Args = nbody::SimArgs<double>;
 // The largest n whose one-device chunk is one persistent launch; above it
 // a launch a step (sim_step_f64_kernel on all n rows), which measured
 // faster there on an H100 (PERF.md: 12.63 against 12.89 us a step at
-// n = 1024, 30.6 against 53.9 at 2048)
+// n = 1024, 30.6 against 53.9 at 2048; with the narrow F64Producer
+// geometry it is faster from 256 bodies on, PERF.md section 7, an open
+// question without a benchmark cell)
 constexpr int PERSISTENT_MAX_N = 512;
 
-// The block's share of step t: the live rows from i0, from buffer in into
-// buffer out; `next`: form what step t + 1 reads (every step but a
-// chunk's last). Blocked: a mesh rank's rows (or one device's above
-// PERSISTENT_MAX_N), whose launch forms every body's gm apart and reads
-// its sources through kernel B1's table (F64Table, whose loads may take
-// the read-only path: nothing writes its input while it runs). Else one
-// device's persistent chunk, whose loads that wait for nothing of this
-// step are issued early: a compute thread's first source before the rows'
+// The persistent chunk's share of step t: the live rows from i0, from
+// buffer in into buffer out; `next`: form what step t + 1 reads (every
+// step but a chunk's last). Its loads that wait for nothing of this step
+// are issued early: a compute thread's first source before the rows'
 // barrier and each next one a tile ahead (f64_rows_terms_ahead), a fold
 // lane's gm of step t + 1 before the fold (out's gm slot is read only in
 // the next step).
-template <int dist3, int integ, bool comp, bool Blocked>
+template <int dist3, int integ, bool comp>
 __device__ __forceinline__ void step_rows(const Args& a, const double* in,
                                           double* out, int i0, int live,
                                           int t, int next,
@@ -80,16 +92,12 @@ __device__ __forceinline__ void step_rows(const Args& a, const double* in,
     const double* gm = in + nbody::SLOT_GM * S;
     const bool computes = threadIdx.x < Geo::NC;
     nbody::F64Src first{};
-    if (!Blocked && computes)
+    if (computes)
         first = nbody::F64Src::at(pos, gm, threadIdx.x % Geo::TJ, a.n);
     nbody::f64_rows_qi<Geo>(pos + 3LL * i0, live, sm);
     if (computes) {
-        if constexpr (Blocked)
-            nbody::f64_rows_terms<Geo, dist3>(nbody::F64Table{pos, gm}, a.n,
-                                              live, a.eps2, sm);
-        else
-            nbody::f64_rows_terms_ahead<Geo, dist3>(pos, gm, a.n, live,
-                                                    a.eps2, sm, first);
+        nbody::f64_rows_terms_ahead<Geo, dist3>(pos, gm, a.n, live, a.eps2,
+                                                sm, first);
         return;
     }
     int x;
@@ -97,7 +105,7 @@ __device__ __forceinline__ void step_rows(const Args& a, const double* in,
     const long long e = 3LL * i0 + x;
     nbody::SimLane<double> s{};
     if (folds) s = nbody::sim_load<double, integ, comp>(a, in, e);
-    if (!Blocked && next && folds && x % 3 == 0)
+    if (next && folds && x % 3 == 0)
         nbody::sim_form_gm(a, out, i0 + x / 3, t + 1);
     const double acc = nbody::f64_rows_fold<Geo>(a.n, folds, sm);
     if (!folds) return;
@@ -114,26 +122,127 @@ sim_chunk_f64_kernel(Args a, double* st0, double* st1, int K) {
         a, st0, st1, K, rows,
         [&](const double* in, double* out, int rb, int t, int next) {
             const int i0 = rb * Geo::R;
-            step_rows<dist3, integ, comp, false>(
-                a, in, out, i0, min(Geo::R, a.n - i0), t, next, sm);
+            step_rows<dist3, integ, comp>(a, in, out, i0,
+                                          min(Geo::R, a.n - i0), t, next,
+                                          sm);
         });
 }
 
-// A launch a step: the step at offset `off` in its chunk from buffer in
-// into buffer out, on the rows [a.r0, a.end) (a mesh rank's, or all n on
-// one device above PERSISTENT_MAX_N)
-template <int dist3, int integ, bool comp>
-__global__ void __launch_bounds__(Geo::THREADS, Geo::MINB)
+// The Blocked step's sources (f64_force.cuh f64_rows_terms_rt): the
+// positions its force reads (q, or the leapfrog's p) and gm, slots of the
+// launch's buffer `in`, which no thread of the launch writes (`next`
+// writes out's), so the loads may take the read-only path; source j a
+// position and its gm_j, formed by the launch before
+struct SimSources {
+    const double* __restrict__ q;     // (n, 3)
+    const double* __restrict__ gmj;   // (n,)
+    struct Cursor {};
+    struct Source {
+        double x, y, z, gm;
+    };
+    __device__ __forceinline__ Cursor cursor(int) const { return {}; }
+    // source j, or zeros past n
+    __device__ __forceinline__ Source at(Cursor&, int j, int n) const {
+        if (j >= n) return {0.0, 0.0, 0.0, 0.0};
+        return {q[3LL * j], q[3LL * j + 1], q[3LL * j + 2], gmj[j]};
+    }
+    __device__ __forceinline__ double gm(const Source& s) const {
+        return s.gm;
+    }
+};
+
+// A launch a step in geometry G (with_geometry below, f64_force.cuh
+// F64Producer): the step at offset `off` in its chunk from buffer in into
+// buffer out, on the rows [a.r0, a.end) (a mesh rank's, or all n on one
+// device above PERSISTENT_MAX_N); the block's R rows from r0 +
+// blockIdx.x * R. Tile 0's source is loaded before the rows' barrier, so
+// that its latency runs under it; a fold lane reads its state before the
+// fold.
+template <class G, int dist3, int integ, bool comp>
+__global__ void __launch_bounds__(G::THREADS, G::MINB)
 sim_step_f64_kernel(Args a, const double* __restrict__ in,
                     double* __restrict__ out, int off, int next) {
-    __shared__ typename Geo::Smem sm;
+    __shared__ typename G::Smem sm;
 
     const int t = nbody::sim_step_at(a, off);
     if (next) nbody::sim_form_gm_all(a, out, t + 1);
-    const int i0 = a.r0 + blockIdx.x * Geo::R;
-    const int live = min(Geo::R, a.end - i0);
+    const int i0 = a.r0 + blockIdx.x * G::R;
+    const int live = min(G::R, a.end - i0);
     if (live <= 0) return;   // a rank without rows
-    step_rows<dist3, integ, comp, true>(a, in, out, i0, live, t, next, sm);
+    const long long S = a.slot;
+    const SimSources src{in + nbody::sim_pos_slot<integ>() * S,
+                         in + nbody::SLOT_GM * S};
+    const bool computes = threadIdx.x < G::NC;
+    SimSources::Cursor cur = src.cursor(threadIdx.x % G::TJ);
+    SimSources::Source s{};
+    if (computes) s = src.at(cur, threadIdx.x % G::TJ, a.n);
+    nbody::f64_rows_qi<G>(src.q + 3LL * i0, live, sm);
+    if (computes) {
+        nbody::f64_rows_terms_rt<G, dist3>(src, cur, s, a.n, live, a.eps2,
+                                           sm);
+        return;
+    }
+    int x;
+    const bool folds = nbody::f64_fold_lane<G>(live, x);
+    const long long e = 3LL * i0 + x;
+    nbody::SimLane<double> st{};
+    if (folds) st = nbody::sim_load<double, integ, comp>(a, in, e);
+    const double acc = nbody::f64_rows_fold_tiles<G>(a.n, folds, sm);
+    if (!folds) return;
+    nbody::sim_update<double, integ, comp>(a, st, acc, out, e, next);
+}
+
+// The Blocked step's geometries by index (sim_geometry's choice):
+// F64Producer<R, RT, TJ, NBUF, MINB>. Of the sweep's 30 (PERF.md section
+// 6) the fastest at 513 to 2048 rows and at 4096 to 65536 rows.
+template <class F>
+int with_geometry(int g, F&& f) {
+    switch (g) {
+        case 0: return f(nbody::F64Producer<4, 2, 64, 4, 4>{});
+        case 1: return f(nbody::F64Producer<8, 2, 32, 4, 4>{});
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// The blocks an SM of the wide geometry above which it is chosen
+constexpr int WIDE_MIN_BLOCKS_PER_SM = 2;
+
+// The Blocked step's geometry for a launch of `rows` rows on a card of
+// `sms` SMs: the wide one (1: blocks of 8 rows, 24 fold lanes) where its
+// blocks outnumber WIDE_MIN_BLOCKS_PER_SM an SM, else blocks of four
+// rows (0), twice as many blocks, which keep more SMs busy (on an H100,
+// 2048 rows 0.0259 ms a step against 0.0297, 2560 rows 0.0465 against
+// 0.0443; PERF.md section 6).
+int sim_geometry(int rows, int sms) {
+    return (rows + 7) / 8 > WIDE_MIN_BLOCKS_PER_SM * sms ? 1 : 0;
+}
+
+// sim_geometry on this card
+cudaError_t sim_geometry_here(int rows, int* g) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err == cudaSuccess) *g = sim_geometry(rows, sms);
+    return err;
+}
+
+// f(step) in the geometry sim_geometry gives a's rows, step(in, out, off,
+// next) launching the Blocked step at offset `off` from in into out
+template <int dist3, int integ, bool comp, class F>
+int with_blocked_step(const Args& a, cudaStream_t s, F&& f) {
+    int g = 0;
+    const cudaError_t err = sim_geometry_here(a.end - a.r0, &g);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return with_geometry(g, [&](auto geo) {
+        using G = decltype(geo);
+        const dim3 grid = nbody::sim_rows_grid(a, G::R);
+        return f([&](const double* in, double* out, int off, int next) {
+            sim_step_f64_kernel<G, dist3, integ, comp>
+                <<<grid, G::THREADS, 0, s>>>(a, in, out, off, next);
+        });
+    });
 }
 
 int row_blocks(int n) { return (n + Geo::R - 1) / Geo::R; }
@@ -148,13 +257,10 @@ int chunk(const Args& a, double* buf[2], int K, int cap, cudaStream_t s,
             sim_chunk_f64_kernel<dist3, integ, comp>, row_blocks(a.n), cap,
             s, launched, a, buf[0], buf[1], K);
     const Args w = nbody::sim_whole(a);
-    const dim3 grid = nbody::sim_rows_grid(w, Geo::R);
-    return nbody::sim_chunk<double, integ, comp>(
-        w, buf, K, s, launched,
-        [&](double* in, double* out, int off, int next) {
-            sim_step_f64_kernel<dist3, integ, comp>
-                <<<grid, Geo::THREADS, 0, s>>>(w, in, out, off, next);
-        });
+    return with_blocked_step<dist3, integ, comp>(w, s, [&](auto step) {
+        return nbody::sim_chunk<double, integ, comp>(w, buf, K, s, launched,
+                                                     step);
+    });
 }
 
 // A mesh rank's launch: the step at offset `off` from in into out, or
@@ -164,10 +270,10 @@ int rows_step(const Args& a, double* in, double* out, int off, int next,
               cudaStream_t s) {
     if (out == nullptr)
         return nbody::sim_pre<double, integ, comp>(a, in, off, s);
-    sim_step_f64_kernel<dist3, integ, comp>
-        <<<nbody::sim_rows_grid(a, Geo::R), Geo::THREADS, 0, s>>>(
-            a, in, out, off, next);
-    return static_cast<int>(cudaGetLastError());
+    return with_blocked_step<dist3, integ, comp>(a, s, [&](auto step) {
+        step(in, out, off, next);
+        return static_cast<int>(cudaGetLastError());
+    });
 }
 
 // f(Variant<dist3, integ, comp>{}) for the variant asked for: f reads the
@@ -288,6 +394,55 @@ extern "C" int sim_step_f64_info(int n, int integrator, int compensated,
                               sim_chunk_f64_kernel<V::D3, V::INTEG, V::COMP>,
                               Geo::THREADS, Geo::R, row_blocks(n), out);
                       });
+}
+
+// The Blocked step's geometry for a launch of `rows` rows of n bodies (n
+// on one device above PERSISTENT_MAX_N, a rank's rows on the mesh): out =
+// {its index, rows a block, rows a compute thread, columns a tile, term
+// tiles in the ring}. Returns 0, or the CUDA error
+// (cudaErrorInvalidValue for rows outside 0 .. n).
+extern "C" int sim_step_f64_geometry(int n, int rows, int* out) {
+    if (n < 1 || rows < 0 || rows > n)
+        return static_cast<int>(cudaErrorInvalidValue);
+    int g = 0;
+    const cudaError_t err = sim_geometry_here(rows, &g);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return with_geometry(g, [&](auto geo) {
+        using G = decltype(geo);
+        const int values[] = {g, G::R, G::RT, G::TJ, G::NBUF};
+        for (int k = 0; k < 5; ++k) out[k] = values[k];
+        return 0;
+    });
+}
+
+// What the card says of the Blocked step kernel of this variant that a
+// launch of `rows` rows of n bodies takes (forces.cuh kernel_info): out =
+// {registers, local bytes, threads, resident blocks an SM, rows a block,
+// columns a tile, the geometry's index, rows a compute thread, term tiles
+// in the ring, shared memory bytes a block}. Returns the CUDA error, or
+// 0.
+extern "C" int sim_step_f64_blocked_info(int n, int rows, int integrator,
+                                         int compensated, int dist3,
+                                         int* out) {
+    if (!args_ok(n, integrator, compensated, dist3) || rows < 0 || rows > n)
+        return static_cast<int>(cudaErrorInvalidValue);
+    int g = 0;
+    const cudaError_t err = sim_geometry_here(rows, &g);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return on_variant(dist3, integrator, compensated != 0, [&](auto v) {
+        using V = decltype(v);
+        return with_geometry(g, [&](auto geo) {
+            using G = decltype(geo);
+            const int e = nbody::kernel_info(
+                sim_step_f64_kernel<G, V::D3, V::INTEG, V::COMP>,
+                G::THREADS, G::R, out);
+            if (e != 0) return e;
+            const int more[] = {G::TJ, g, G::RT, G::NBUF,
+                                static_cast<int>(sizeof(typename G::Smem))};
+            for (int k = 0; k < 5; ++k) out[5 + k] = more[k];
+            return 0;
+        });
+    });
 }
 
 // K grid syncs alone, in the grid of the Euler chunk at n bodies (dsqrt,

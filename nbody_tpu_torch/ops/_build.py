@@ -8,8 +8,8 @@ or the flags change (a SHA-256 stamp beside the library). Nothing here
 runs at import: this module is imported on machines that have no nvcc.
 `build_variant` builds another copy of the sources into a library of its
 own, for a measurement that times a variant against this build;
-`build_chunk_variants` builds several copies of the binary64 graded step
-alone at once.
+`build_chunk_variants` builds several copies of a binary64 step kernel's
+source (the graded step's or simulate's) alone at once.
 """
 
 from __future__ import annotations
@@ -134,20 +134,33 @@ def build_variant(csrc: str, lib_path: str) -> ctypes.CDLL:
     return declare(ctypes.CDLL(lib_path))
 
 
-def build_chunk_variants(libs: dict) -> dict:
-    """Build `graded_step_f64.cu` alone from each directory of libs
-    ({lib_path: csrc}, copies of the sources edited, or another checkout's
-    own), all at once, each into its lib_path; load each and declare the
-    entry points of `graded_step_f64.cu` it has as this build declares
-    them (`graded_chunk_f64_launch`'s signature every checkout since the
-    graded graphs shares). Returns {lib_path: lib}."""
-    _compile_and_link(libs, ("graded_step_f64.cu",))
+# the entry points of a source that build_chunk_variants declares
+CHUNK_ENTRIES = {
+    "graded_step_f64.cu": ("graded_chunk_f64_launch",
+                           "graded_step_f64_geometry",
+                           "graded_step_f64_info"),
+    "sim_step_f64.cu": ("sim_chunk_f64_launch", "sim_rows_f64_step",
+                        "sim_step_f64_geometry",
+                        "sim_step_f64_blocked_info", "sim_step_f64_info",
+                        "sim_step_slots"),
+}
+
+
+def build_chunk_variants(libs: dict,
+                         source: str = "graded_step_f64.cu") -> dict:
+    """Build the binary64 step kernel's `source` (`graded_step_f64.cu` or
+    `sim_step_f64.cu`) alone from each directory of libs ({lib_path:
+    csrc}, copies of the sources edited, or another checkout's own), all
+    at once, each into its lib_path; load each and declare the entry
+    points of that source it has (CHUNK_ENTRIES) as this build declares
+    them (each chunk call's signature every checkout since the chunk
+    graphs shares). Returns {lib_path: lib}."""
+    _compile_and_link(libs, (source,))
     ref = load()
     out = {}
     for lib_path in libs:
         lib = out[lib_path] = ctypes.CDLL(lib_path)
-        for name in ("graded_chunk_f64_launch", "graded_step_f64_geometry",
-                     "graded_step_f64_info"):
+        for name in CHUNK_ENTRIES[source]:
             if hasattr(lib, name):
                 fn, want = getattr(lib, name), getattr(ref, name)
                 fn.restype, fn.argtypes = want.restype, want.argtypes
@@ -217,6 +230,15 @@ def declare(lib):
     lib.sim_step_f32_info.argtypes = [*[ctypes.c_int] * 3, ctypes.c_void_p]
     lib.sim_step_f64_info.restype = ctypes.c_int
     lib.sim_step_f64_info.argtypes = [*[ctypes.c_int] * 4, ctypes.c_void_p]
+    # the binary64 Blocked step's geometry at (n, rows) (int out[5]), and
+    # what the card says of its kernel there (n, rows, integrator,
+    # compensated, dist3; int out[10])
+    lib.sim_step_f64_geometry.restype = ctypes.c_int
+    lib.sim_step_f64_geometry.argtypes = [*[ctypes.c_int] * 2,
+                                          ctypes.c_void_p]
+    lib.sim_step_f64_blocked_info.restype = ctypes.c_int
+    lib.sim_step_f64_blocked_info.argtypes = [*[ctypes.c_int] * 5,
+                                              ctypes.c_void_p]
     lib.sim_step_dd_info.restype = ctypes.c_int
     lib.sim_step_dd_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
     # what the card says of a binary64 force kernel (int out[7])

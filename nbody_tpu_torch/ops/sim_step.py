@@ -60,7 +60,8 @@ A one-device chunk on a card counts its bodies x steps in the open
 request's record (utils/profiling `sim_rows`) under its precision (f64,
 f32, dd) and the form that the C call reports through its launch count:
 `persistent` for one launch, `blocked` for the pre-launch and one a step
-(a replay as its graph captured it).
+(a replay as its graph captured it); a binary64 `blocked` chunk under the
+geometry its launches took, `blocked.g<k>` (`sim_f64_geometry`).
 """
 
 from __future__ import annotations
@@ -330,7 +331,7 @@ def _chunk(wrapper, c: SimCarry, s0: int, s1: int, graphs, name: str,
     graph captured. The key of its graph is the call's arguments but the
     buffers', which `_run` adds: everything that decides the captured
     work."""
-    K = s1 - s0
+    K, n = s1 - s0, c.q.shape[0]
     launch = getattr(lib, name)
     top = 1 + max(i for i, x in enumerate(_state(c)) if x is not None)
 
@@ -345,13 +346,28 @@ def _chunk(wrapper, c: SimCarry, s0: int, s1: int, graphs, name: str,
             if K % 2:
                 st[0, :top].copy_(st[1, :top])
         run.launched = launched
+        run.blocked = "blocked" if precision != "f64" else \
+            f"blocked.g{sim_f64_geometry(lib, n, n)[0]}"
         return run
 
-    run = _run(c, s0, graphs, c.q.shape[0], ("chunk", name, args, K), body)
+    run = _run(c, s0, graphs, n, ("chunk", name, args, K), body)
     launched = run.launched.value
     wrapper.launches += launched
-    form = "persistent" if launched == 1 else "blocked"
-    profiling.sim_rows(f"{precision}.{form}", c.q.shape[0] * K)
+    form = "persistent" if launched == 1 else run.blocked
+    profiling.sim_rows(f"{precision}.{form}", n * K)
+
+
+def sim_f64_geometry(lib, n: int, rows: int) -> tuple:
+    """The binary64 Blocked step's geometry that the library `lib` takes
+    for a launch of `rows` rows of n bodies (csrc/sim_step_f64.cu
+    sim_step_f64_geometry): (index, rows a block, rows a compute thread,
+    columns a tile, term tiles in the ring)."""
+    out = (ctypes.c_int * 5)()
+    rc = lib.sim_step_f64_geometry(n, rows, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"sim_step_f64_geometry({n}, {rows}) failed: "
+                           f"CUDA error {rc}")
+    return tuple(out)
 
 
 def _read(c: SimCarry, out: torch.Tensor) -> None:
@@ -414,13 +430,25 @@ def sim_chunk_f64(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
                           dist3_mode=dist3_mode)
         return
     _launch(sim_chunk_f64, c, s0, s1, graphs, "sim_chunk_f64_launch",
-            (m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(), c.q.shape[0],
-             INTEGRATORS.index(integrator), int(compensated),
-             DIST3_CODES[dist3_mode], G, dt, 0.5 * dt, eps * eps, grid_cap),
+            f64_chunk_args(c, m0, m_half, fst, G=G, eps=eps, dt=dt,
+                           integrator=integrator, compensated=compensated,
+                           dist3_mode=dist3_mode, grid_cap=grid_cap),
             "f64")
 
 
 sim_chunk_f64.launches = 0
+
+
+def f64_chunk_args(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,
+                   fst: torch.Tensor, *, G: float, eps: float, dt: float,
+                   integrator: str, compensated: bool,
+                   dist3_mode: str = "dsqrt", grid_cap: int = 0) -> tuple:
+    """The arguments of `sim_chunk_f64_launch` between the state buffers
+    and the base step's word, for `_chunk` (which measurements also call
+    with another build of the library)."""
+    return (m0.data_ptr(), m_half.data_ptr(), fst.data_ptr(), c.q.shape[0],
+            INTEGRATORS.index(integrator), int(compensated),
+            DIST3_CODES[dist3_mode], G, dt, 0.5 * dt, eps * eps, grid_cap)
 
 
 def sim_chunk_f32_ref(c: SimCarry, m0: torch.Tensor, m_half: torch.Tensor,

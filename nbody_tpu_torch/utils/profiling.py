@@ -39,7 +39,9 @@ its own):
                   card, by precision and form (`sim_rows`): f64, f32 or
                   dd, then persistent (one launch a chunk) or blocked (a
                   launch a step on all rows), as the C call chose, for a
-                  replay as its graph captured it
+                  replay as its graph captured it; binary64's blocked
+                  as blocked.g<k>, the geometry its step kernel took
+                  (csrc/sim_step_f64.cu sim_step_f64_geometry)
     captures, capture_s   the graph captures and their host seconds
     resident_chunks       the graded chunks that ran as one launch of the
                   resident kernel (csrc/graded_step_f64.cu;
@@ -297,7 +299,7 @@ def pdl_launched(count: int) -> None:
 
 def sim_rows(key: str, row_steps: int) -> None:
     """Count `row_steps` bodies x steps of a simulate chunk of the
-    precision and form `key` ('f64.blocked', ...) in the open request;
+    precision and form `key` ('f64.blocked.g1', ...) in the open request;
     nothing outside one."""
     req = getattr(_open, "request", None)
     if req is not None:

@@ -21,8 +21,11 @@ Here, on the CPU, the tests hold:
     over three orbits and falls as dt^2;
   * a call's record holds one `seed` span for the leapfrog and none for
     Euler; `sim_row_steps` counts n x steps under its precision and the
-    form that the one-device C call reports (through the stand-in library
-    of tests/test_torch_sim_graph), and nothing for the plain versions;
+    form that the one-device C call reports, a launch a step under the
+    geometry the library reports (through the stand-in library of
+    tests/test_torch_sim_graph), and nothing for the plain versions;
+  * each geometry of the Blocked step can be forced by an edit of a copy
+    of its source (chip_smoke.py phase 18);
   * the cell `plummer-n65536-f64-leapfrog`'s traffic at a tiny size through
     the harness: `correct`, the work with the seed, the seed's reader;
     `correct` false with half the sources left out of the force.
@@ -31,7 +34,10 @@ On a card (marked `cuda`, skipped here): `sim_chunk_f64` through
 simulate() with KDK at n = 512 (one persistent launch a chunk), 513 and
 4096 (a launch a step of the Blocked form), 50 steps in chunks of 25,
 bitwise the reference's serial mode on the card, each counted under its
-form; and the block mode against the serial mode at n = 4096:
+form; the block mode against the serial mode at n = 4096; each geometry
+of the Blocked step forced, and the library's choice, bitwise the plain
+chunk at n = 513 and 16384 in every variant, dsqrt and sqrt3; the mesh's
+row-range form at world size 1 bitwise one device there:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_sim_f64_kdk.py
 """
@@ -225,19 +231,24 @@ def test_record_counts_the_seed_and_the_rows(integrator, seeds):
     assert rec["row_steps"] == {"sim": STEPS}
 
 
-@pytest.mark.parametrize("max_n,form", [(64, "persistent"),
-                                        (63, "blocked")])
+@pytest.mark.parametrize("max_n,wide,form", [(64, 64, "persistent"),
+                                             (63, 65, "blocked.g0"),
+                                             (63, 64, "blocked.g1")])
 def test_record_counts_the_rows_under_the_form_the_call_reports(
-        monkeypatch, max_n, form):
+        monkeypatch, max_n, wide, form):
     """simulate() through the C call's path on CPU tensors, the stand-in
     library's chunk call reporting one launch up to `persistent_max_n`
-    bodies and the pre-launch and one a step above: n x steps under the
-    form it reported, and the plain path's bits."""
+    bodies and the pre-launch and one a step above, its geometry entry
+    the wide geometry (1) from `wide` rows: n x steps under the form and,
+    for a launch a step, the geometry it reported, and the plain path's
+    bits."""
     import test_torch_sim_graph as sim_graph
     import torch_mesh_workers
 
+    q, v, _ = _port(64, 7)        # the plain path's, before the stand-in
     lib = sim_graph.FakeLib(CONSTANTS["eps"])
     lib.persistent_max_n = max_n
+    lib.wide_min_rows = wide
     torch_mesh_workers.fake_kernels(monkeypatch.setattr, lib)
     st = simulate(_scene(*_sphere(64)), SimConfig(**_kw()), n_steps=STEPS,
                   chunk=STEPS, precision="f64", integrator="leapfrog",
@@ -245,7 +256,6 @@ def test_record_counts_the_rows_under_the_form_the_call_reports(
     assert [k for _, k, _, _ in lib.chunks] == [STEPS]
     assert profiling.RECORDS[-1]["sim_row_steps"] == {
         f"f64.{form}": 64 * STEPS}
-    q, v, _ = _port(64, 7)
     assert np.array_equal(st.q, q) and np.array_equal(st.v, v)
 
 
@@ -341,13 +351,23 @@ def cuda():
     return torch.device("cuda")
 
 
+def _blocked_key(n: int) -> str:
+    """The record's key of a one-device Blocked chunk at n bodies: the
+    geometry this card's library takes for n rows."""
+    from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.ops.sim_step import sim_f64_geometry
+
+    return f"f64.blocked.g{sim_f64_geometry(_build.load(), n, n)[0]}"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,form", [(512, "persistent"), (513, "blocked"),
                                     (4096, "blocked")])
 def test_kdk_bitwise_serial_reference_on_card(cuda, n, form):
     """50 steps in chunks of 25 (a capture and a replay), each chunk one
     C call of sim_chunk_f64, bitwise the serial reference on the card, and
-    counted under the form the C call chose."""
+    counted under the form the C call chose (a launch a step under its
+    geometry)."""
     q0, v0, m = _sphere(n)
     with profiling.entry("card") as req:
         st = simulate(_scene(q0, v0, m), SimConfig(**_kw()), n_steps=50,
@@ -355,7 +375,8 @@ def test_kdk_bitwise_serial_reference_on_card(cuda, n, form):
                       device="cuda")
     rq, rv = plummer_kdk.march(q0, v0, m, n_steps=50, device=cuda,
                                mode="serial", **_kw())
-    assert req.record["sim_row_steps"] == {f"f64.{form}": n * 50}
+    key = "f64.persistent" if form == "persistent" else _blocked_key(n)
+    assert req.record["sim_row_steps"] == {key: n * 50}
     assert req.record["seeds"] == 1 and req.record["seed_s"] > 0
     assert np.array_equal(st.q, rq) and np.array_equal(st.v, rv)
 
@@ -368,3 +389,115 @@ def test_block_mode_against_serial_on_card(cuda):
                        plummer_kdk.march(q0, v0, m, mode="serial", **kw),
                        q0, v0)
     assert all(got[k] <= LIMITS[k] / 10 for k in LIMITS), got
+
+
+# the Blocked step's geometries, each forced in a library of its own
+# (chip_smoke.sim_f64_libs), at a size each form is chosen at: 513 rows
+# take blocks of four rows, WIDE_N the wide geometry
+WIDE_N = 16384
+
+
+@functools.lru_cache(maxsize=None)
+def _forced_libs() -> dict:
+    import chip_smoke
+
+    return chip_smoke.sim_f64_libs(None, "checks")
+
+
+def sim_expected(rows: int, sms: int) -> int:
+    """The geometry csrc/sim_step_f64.cu sim_geometry chooses for a
+    launch of `rows` rows, by its rule (the test's own statement of it):
+    the wide one where its blocks of 8 rows outnumber two an SM."""
+    return 1 if -(-rows // 8) > 2 * sms else 0
+
+
+def test_forced_geometries_cover_the_choice(tmp_path):
+    """Every index the choice can return is a geometry of the source,
+    each forced by one edit (chip_smoke.sim_forced) that finds its line;
+    the persistent limit's edit finds its line too, and a sweep copy of
+    the sources holds its one geometry, always chosen."""
+    import chip_smoke
+
+    from nbody_tpu_torch.ops import _build
+
+    assert chip_smoke.sim_geometries() == 2
+    with open(os.path.join(_build.CSRC, "sim_step_f64.cu")) as f:
+        text = f.read()
+    assert text.count(chip_smoke._SIM_CHOICE) == 1
+    assert text.count(chip_smoke._SIM_PMAX) == 1
+    assert len(chip_smoke._SIM_TABLE.findall(text)) == 1
+    copy = chip_smoke.sim_sweep_csrc((8, 4, 64, 3, 3), str(tmp_path / "s"))
+    with open(os.path.join(copy, "sim_step_f64.cu")) as f:
+        edited = f.read()
+    cases = chip_smoke._SIM_TABLE.search(edited).group(2)
+    assert cases.strip() == ("case 0: return f(nbody::F64Producer<8, 4, "
+                             "64, 3, 3>{});")
+    assert f"{chip_smoke._SIM_CHOICE}    return 0;\n" in edited
+    assert [sim_expected(r, 132) for r in (513, 2048, 2112, 2113, WIDE_N,
+                                           65536)] == [0, 0, 0, 1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist3", ["dsqrt", "sqrt3"])
+@pytest.mark.parametrize("integrator,compensated",
+                         [("euler", False), ("euler", True),
+                          ("leapfrog", False), ("leapfrog", True)])
+@pytest.mark.parametrize("n", [513, WIDE_N])
+@pytest.mark.parametrize("library", ["change"] + [
+    f"g{g}" for g in range(2)])
+def test_each_geometry_bitwise_plain_chunk_on_card(cuda, library, n,
+                                                   integrator, compensated,
+                                                   dist3):
+    """3 steps of the Blocked form in chunks of 2 and 1, each geometry
+    forced and the library's own choice, every carry bitwise
+    sim_chunk_f64_ref on the same carry on the card
+    (chip_smoke.sim_f64_blocked_check); the choice is sim_expected's."""
+    import chip_smoke
+
+    from nbody_tpu_torch.ops import _build
+
+    assert chip_smoke.sim_geometries() == 2
+    rec = chip_smoke.sim_f64_blocked_check(_forced_libs()[library], n,
+                                           integrator, compensated, dist3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = sim_expected(n, sms) if library == "change" else int(library[1:])
+    assert rec["geometry"] == want, rec
+    assert rec["bitwise_equal"], rec
+    if library == "change":
+        from nbody_tpu_torch.ops.sim_step import sim_f64_geometry
+
+        assert sim_f64_geometry(_build.load(), n, n)[0] == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator,compensated",
+                         [("euler", False), ("euler", True),
+                          ("leapfrog", False), ("leapfrog", True)])
+@pytest.mark.parametrize("n", [513, WIDE_N])
+def test_mesh_rows_at_world_size_one_bitwise_one_device_on_card(
+        cuda, n, integrator, compensated):
+    """sim_rows_chunk_f64 on one block of all n rows (sim_rows_f64_step,
+    world size 1) bitwise sim_chunk_f64 on one device, 3 steps in chunks
+    of 2 and 1, both a launch a step in the geometry of n rows."""
+    import chip_smoke
+
+    from nbody_tpu_torch.ops import sim_step as ss
+    from nbody_tpu_torch.ops.chunking import Blocks
+
+    scene = chip_smoke.sim_cell_scene(n, chip_smoke.SIM_F64_SEED)
+    out = []
+    for rows in (False, True):
+        c, m0, mh, fst, kw, _ = chip_smoke.sim_carry(scene, integrator,
+                                                     compensated, 3)
+        for s0, s1 in ((0, 2), (2, 3)):
+            if rows:
+                ss.sim_rows_chunk_f64(c, m0, mh, fst, s0, s1,
+                                      blocks=Blocks(n, 1, (0,)), **kw)
+            else:
+                ss.sim_chunk_f64(c, m0, mh, fst, s0, s1, **kw)
+        out.append(c)
+    for name in ("q", "v", "a", "qc", "vc"):
+        a, b = getattr(out[0], name), getattr(out[1], name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a, b), name

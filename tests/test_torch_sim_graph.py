@@ -92,6 +92,9 @@ class FakeLib(W.FakeSimLib):
     # persistent launch; above it, and in double-double, the pre-launch
     # and one a step
     persistent_max_n = 1 << 30
+    # the rows from which the binary64 Blocked step's geometry is 1 (else
+    # 0), as sim_step_f64_geometry reports it
+    wide_min_rows = 1 << 30
 
     def __init__(self, eps: float):
         super().__init__(eps)
@@ -105,6 +108,17 @@ class FakeLib(W.FakeSimLib):
         return self._chunk("f64", st0, st1, m0, mh, fst, n, integ, comp,
                            {"G": G, "dt": dt, "dist3_mode": _DIST3[dist3]},
                            word, K, launched)
+
+    def sim_step_f64_geometry(self, n, rows, out):
+        """The library's report of the Blocked step's geometry: index 1
+        (8 rows a block, 2 a compute thread, 32 columns, 4 tiles in the
+        ring) from `wide_min_rows` rows, else 0 (4, 2, 64, 4)."""
+        if not 0 <= rows <= n:
+            return 1                      # cudaErrorInvalidValue
+        wide = rows >= self.wide_min_rows
+        for k, x in enumerate((1, 8, 2, 32, 4) if wide else (0, 4, 2, 64, 4)):
+            ctypes.c_int.from_address(out + 4 * k).value = x
+        return 0
 
     def sim_chunk_f32_launch(self, st0, st1, m0, mh, fst, n, integ, comp,
                              G, dt, kick, eps2, grid_cap, word, K, launched,
